@@ -1,0 +1,1 @@
+"""The port's validator: components and the CLI for the compute chain."""
