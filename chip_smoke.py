@@ -9,15 +9,24 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
 1. print the card (``nvidia-smi`` name and power limit), torch and nvcc
    versions, and build the kernels from ``tpu_operator_torch/csrc``;
 2. hold each kernel against its plain PyTorch version on the card (the
-   copies bit-exact, flash attention within 1e-2 of its plain version and
-   within 2e-2 of the f32 oracle), time kernel, plain version and one
-   library call at the main path's shapes, and print one ``kernels`` JSON
-   line;
+   copies bit-exact; flash attention K3 and the variants K4 ``pipelined``
+   and K5 ``bf16exp`` within 1e-2 of their plain versions and within 2e-2
+   of the f32 oracle, K4 also against K3 (bit for bit expected, within
+   1e-2 required); the
+   instruments K6a ``softmax_stub`` within 1e-2 and K6b ``qk_only`` within
+   one bf16 ulp of theirs), time kernel, plain version and one library
+   call at the main path's shapes;
 3. run the main path in-process at its full operating points (matmul 8192,
    membw 2 GiB, flash attention 8192 x 8 heads) with the launch counts set
    to 0 just before and read just after;
+3b. run the flash-attention attribution path the same way: the bench's
+   ``run_flashattn_breakdown(seq=8192, heads=8, iters=16)`` and the
+   ``bf16exp`` probe at 8192 x 8 heads, each of K3-K6b launched;
 4. run the validator CLI for the same three components as subprocesses,
    each writing its status file into a temporary directory.
+
+Then it prints one ``kernels`` JSON line, each kernel's launches read from
+the path that runs it (K1-K3 phase 3, K4-K6b phase 3b).
 
 The last line of standard output is one JSON object naming the device.
 Without a CUDA device, or without the ``tpu_operator_torch`` package
@@ -36,7 +45,8 @@ import time
 import torch
 
 COPY_REPLACES = "tpu_operator/workloads/membw.py"
-FLASH_REPLACES = "tpu_operator/workloads/flashattn.py:112"
+FLASH_FILE = "tpu_operator/workloads/flashattn.py"
+FLASH_REPLACES = f"{FLASH_FILE}:112"
 FLASH_TOL_PLAIN = 1e-2  # same function, f32 sums in another order, p rounded per sub-tile
 FLASH_TOL_ORACLE = 2e-2  # the reference's oracle tolerance
 
@@ -46,6 +56,20 @@ FLASH_TEST_SHAPES = [
     (2, 256, 128, 128, False),
     (1, 512, 128, 256, True),
 ]
+# the variants' shapes: the reference's seq-1024 test at the port's blocks
+VARIANT_TEST_SHAPES = FLASH_TEST_SHAPES + [
+    (2, 1024, 128, 128, True),
+    (2, 1024, 128, 256, True),
+]
+# (variant, kernel, line of the TPU kernel it replaces), on the attribution path
+VARIANTS = [
+    ("pipelined", "flash_fwd_pipelined", 209),
+    ("bf16exp", "flash_fwd_bf16exp", 153),
+    ("softmax_stub", "flash_softmax_stub", 192),
+    ("qk_only", "flash_qk_only", 181),
+]
+ATTRIBUTION_KERNELS = ["flash_fwd"] + [name for _, name, _ in VARIANTS]
+BF16_ULP = 2.0**-7  # bf16 keeps 8 significant bits: one ulp is at most 2^-7 of |x|
 
 
 def log(msg: str) -> None:
@@ -196,7 +220,85 @@ def phase_kernels() -> list:
     })
     del q, k, v
     torch.cuda.empty_cache()
+    kernels += variant_rows(fa, qkv, peak_flops, peak_bytes)
     return kernels
+
+
+def check_variant(fa, variant, q, k, v, bq, bk, causal) -> float:
+    """One variant's kernel against its plain version (and, for the two
+    that compute attention, the f32 oracle and K3); raises on a miss."""
+    got = fa.flash_attention(q, k, v, bq, bk, causal, variant)
+    if not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"{variant} produced non-finite values")
+    plain = fa.plain_variant(q, k, v, bq, bk, causal, variant).float()
+    diff = (got.float() - plain).abs()
+    err = float(diff.max())
+    where = f"{variant} H={q.shape[0]} S={q.shape[1]} {bq}/{bk} causal={causal}"
+    if variant in ("pipelined", "bf16exp"):
+        err_ref = float((got.float() - fa.reference_attention(q, k, v, causal)).abs().max())
+        note = f"|kernel-oracle|={err_ref:.3e}"
+        ok = err <= FLASH_TOL_PLAIN and err_ref < FLASH_TOL_ORACLE
+        if variant == "pipelined":
+            full = fa.flash_attention(q, k, v, bq, bk, causal)
+            err_k3 = float((got.float() - full.float()).abs().max())
+            note += f" bit-exact-vs-K3={torch.equal(got, full)} |kernel-K3|={err_k3:.3e}"
+            ok = ok and err_k3 <= FLASH_TOL_PLAIN
+    elif variant == "qk_only":
+        ok = bool((diff <= BF16_ULP * plain.abs() + 1e-3).all())
+        note = "within one bf16 ulp" if ok else "beyond one bf16 ulp"
+    else:
+        ok = err <= FLASH_TOL_PLAIN
+        note = ""
+    log(f"{where}: |kernel-plain|={err:.3e} {note}")
+    if not ok:
+        raise RuntimeError(f"{where} disagrees with its reference")
+    return err
+
+
+def variant_rows(fa, qkv, peak_flops, peak_bytes) -> list:
+    """K4-K6b: checked at the variants' test shapes and at the breakdown's
+    (8, 8192, 128/128, causal), then timed there."""
+    heads, seq = 8, 8192
+    bq, bk = fa.BLOCK_Q_CAP, fa.BLOCK_K_CAP
+    worst = {variant: 0.0 for variant, _, _ in VARIANTS}
+    for h, s, bq_, bk_, causal in VARIANT_TEST_SHAPES + [(heads, seq, bq, bk, True)]:
+        q, k, v = qkv(h, s)
+        for variant in worst:
+            worst[variant] = max(worst[variant], check_variant(fa, variant, q, k, v, bq_, bk_, causal))
+        torch.cuda.empty_cache()
+    performed = fa.causal_flops(seq, heads, fa.LANES, bq, bk)
+    useful = 4.0 * heads * fa.LANES * seq * (seq + 1) / 2.0
+    tensor_bytes = heads * seq * fa.LANES * 2
+    rows = []
+    for variant, name, line in VARIANTS:
+        # operations and bytes each variant must do: the two attention
+        # variants the useful triangle; the instruments what they perform
+        flops = {"softmax_stub": performed, "qk_only": performed / 2}.get(variant, useful)
+        io_bytes = (3 if variant == "qk_only" else 4) * tensor_bytes
+        bound_flops, bound_io = flops / peak_flops, io_bytes / peak_bytes
+        library_ms = None
+        if variant in ("pipelined", "bf16exp"):
+            # (1, H, S, D): a batch dimension lets PyTorch pick its fused kernel
+            library_ms = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=True), 20)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_operator_torch/csrc/flash.cu",
+            "replaces": f"{FLASH_FILE}:{line}",
+            "shape": [heads, seq, fa.LANES, bq, bk],
+            "max_abs_err": worst[variant],
+            "ms": time_ms(lambda: fa.flash_attention(q, k, v, bq, bk, True, variant), 20),
+            "plain_ms": time_ms(
+                lambda: fa.plain_variant(q, k, v, bq, bk, True, variant), 2, warmup=1),
+            "bound_ms": max(bound_flops, bound_io) * 1e3,
+            "bound_by": "operations" if bound_flops >= bound_io else "bytes",
+            "library_ms": library_ms,
+        })
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_main_path() -> dict:
@@ -226,6 +328,32 @@ def phase_main_path() -> dict:
     for name in ("bulk_copy", "flash_fwd"):
         if launches[name] <= 0:
             raise RuntimeError(f"the main path never launched {name}")
+    return launches
+
+
+def phase_attribution() -> dict:
+    from tpu_operator_torch import _build
+    from tpu_operator_torch.workloads.flashattn import (
+        run_flashattn_breakdown,
+        run_flashattn_probe,
+    )
+
+    _build.reset_launches()
+    breakdown = run_flashattn_breakdown(seq=8192, heads=8, iters=16)
+    # at full width: the plain K5 passes the oracle at 8 x 8192 on the CPU too
+    probe = run_flashattn_probe(seq=8192, heads=8, variant="bf16exp")
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    log(f"breakdown: {json.dumps(breakdown)}")
+    log(f"bf16exp probe: {json.dumps(probe.to_dict())}")
+    if not breakdown["ok"]:
+        raise RuntimeError(f"breakdown failed: {breakdown.get('error')}")
+    if not probe.ok:
+        raise RuntimeError(f"bf16exp probe failed: {probe.error}")
+    log(f"launches on the attribution path: {launches}")
+    for name in ATTRIBUTION_KERNELS:
+        if launches[name] <= 0:
+            raise RuntimeError(f"the attribution path never launched {name}")
     return launches
 
 
@@ -262,8 +390,10 @@ def main() -> int:
     phase_setup()
     kernels = phase_kernels()
     launches = phase_main_path()
+    attribution = phase_attribution()
+    variant_kernels = {name for _, name, _ in VARIANTS}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = (attribution if k["name"] in variant_kernels else launches)[k["name"]]
     phase_cli()
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -117,15 +117,22 @@ def test_non_tiling_seq_raises():
         port.flash_attention(q, q, q, 128, 128)
 
 
-@pytest.mark.parametrize("variant", ["pipelined", "bf16exp", "softmax_stub", "qk_only"])
-def test_unported_variants_raise(variant):
-    with pytest.raises(ValueError, match="not ported yet"):
-        port.make_flash_fn(512, 2, 128, 128, 128, variant=variant)
+@pytest.mark.parametrize("variant", port.REFERENCE_VARIANTS)
+def test_every_reference_variant_is_ported(variant):
+    """The JAX package's five variants all build and run in the port."""
+    assert variant in port.PORTED_VARIANTS
+    q, k, v = (convert.to_torch(a) for a in bf16_qkv(2, 256, seed=5))
+    out = port.make_flash_fn(256, 2, 128, 128, 128, variant=variant)(q, k, v)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (2, 256, 128)
+    assert torch.isfinite(out.float()).all()
 
 
 def test_unknown_variant_raises():
     with pytest.raises(ValueError, match="unknown"):
         port.make_flash_fn(512, 2, 128, 128, 128, variant="nope")
+    q = torch.zeros((1, 128, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unknown"):
+        port.flash_attention(q, q, q, 64, 64, variant="nope")
 
 
 def test_probe_cpu():

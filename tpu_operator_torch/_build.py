@@ -35,7 +35,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-KERNELS = ("tiled_copy", "bulk_copy", "flash_fwd")
+KERNELS = (
+    "tiled_copy", "bulk_copy", "flash_fwd", "flash_fwd_pipelined", "flash_fwd_bf16exp",
+    "flash_softmax_stub", "flash_qk_only",
+)
 launches = {name: 0 for name in KERNELS}
 
 _lib = None
@@ -125,8 +128,13 @@ def library():
     lib.tiled_copy_f32.restype = i32
     lib.bulk_copy.argtypes = [vp, vp, i64, i32, vp]
     lib.bulk_copy.restype = i32
-    lib.flash_fwd_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
-    lib.flash_fwd_bf16.restype = i32
+    for name in ("flash_fwd_bf16", "flash_fwd_pipelined", "flash_fwd_bf16exp",
+                 "flash_softmax_stub"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+        fn.restype = i32
+    lib.flash_qk_only.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]  # no V
+    lib.flash_qk_only.restype = i32
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p
     build_info.update(

@@ -1,4 +1,4 @@
-"""Flash-attention forward — the hot-op depth probe, as a CUDA kernel.
+"""Flash-attention forward — the hot-op depth probe, as CUDA kernels.
 
 The counterpart of the JAX package's ``workloads/flashattn.py``: blockwise
 attention with ONLINE softmax (running max and denominator in f32 across
@@ -7,11 +7,16 @@ checked against naive full attention in f32. Throughput is reported over
 the FLOPs the causal tiling performs (``tflops``) and over the exact causal
 triangle (``tflops_effective``).
 
-K3, ``csrc/flash.cu::flash_fwd_bf16``, is the kernel; ``plain_flash`` below
-is the same block recurrence in torch ops (f32 ``m``, ``l`` and
-accumulator, bf16 ``p`` into PV). ``flash_attention`` takes the plain
-version only for CPU tensors; for CUDA tensors it launches K3 or raises.
-Only the ``full`` variant is ported.
+All five variants of the reference are ported, each to a kernel in
+``csrc/flash.cu``: ``full`` (K3), ``pipelined`` (K4, the same function
+with the next scores issued before the current softmax), ``bf16exp`` (K5,
+``exp`` of a bf16 difference), and the attribution instruments
+``softmax_stub`` and ``qk_only`` (K6a, K6b), whose numerics are wrong by
+design. Each has a plain version below in torch ops that follows the
+reference per ``block_k`` block. ``flash_attention`` takes the plain
+version only for CPU tensors; for CUDA tensors it launches the variant's
+kernel or raises. ``run_flashattn_breakdown`` times the instruments and
+attributes K3's time to the matmuls, the softmax, PV and pipelining.
 """
 
 from __future__ import annotations
@@ -38,8 +43,24 @@ BLOCK_K_CAP = 128
 KERNEL_KEY_TILE = 64
 KERNEL_MAX_BLOCK_Q = 128
 
-PORTED_VARIANTS = ("full",)
 REFERENCE_VARIANTS = ("full", "pipelined", "softmax_stub", "qk_only", "bf16exp")
+PORTED_VARIANTS = REFERENCE_VARIANTS
+
+# variant -> (launch counter in _build.launches, C entry in csrc/flash.cu)
+VARIANT_KERNELS = {
+    "full": ("flash_fwd", "flash_fwd_bf16"),
+    "pipelined": ("flash_fwd_pipelined", "flash_fwd_pipelined"),
+    "bf16exp": ("flash_fwd_bf16exp", "flash_fwd_bf16exp"),
+    "softmax_stub": ("flash_softmax_stub", "flash_softmax_stub"),
+    "qk_only": ("flash_qk_only", "flash_qk_only"),
+}
+# the variants the breakdown times, in the reference's order
+BREAKDOWN_VARIANTS = ("full", "pipelined", "softmax_stub", "qk_only")
+STUB_SCALE = 0.001  # softmax_stub's stand-in for the softmax: p = bf16(s * 0.001)
+# The breakdown's microsecond figures keep 5 decimals where the reference
+# keeps 3: a (128, 128) pair costs ~0.08 us on an H100, so 3 decimals
+# would blur the attribution by several percent.
+PAIR_US_DIGITS = 5
 
 
 def diag_stop(i, block_q: int, block_k: int):
@@ -81,10 +102,18 @@ class FlashAttnResult:
         }
 
 
-def plain_flash(q, k, v, block_q: int, block_k: int, causal: bool = True):
-    """K3's plain version: the flash block recurrence in torch ops, all
-    heads at once. Products of bf16 values summed in f32, f32 ``m``/``l``/
-    accumulator, ``p`` rounded to bf16 before PV, output ``acc/l`` in bf16."""
+def plain_flash(
+    q, k, v, block_q: int, block_k: int, causal: bool = True, bf16exp: bool = False
+):
+    """The plain version of K3 (``full``) and of K4 (``pipelined``, which
+    computes the same function; only the kernel's instruction order
+    differs): the flash block recurrence in torch ops, all heads at once.
+    Products of bf16 values summed in f32, f32 ``m``/``l``/accumulator,
+    ``p`` rounded to bf16 before PV, output ``acc/l`` in bf16.
+
+    ``bf16exp=True`` is K5's plain version: ``p = exp(bf16(s - m_new))``
+    rounded to bf16 (the difference taken in f32, natural-log units), ``l``
+    sums that bf16 ``p`` in f32, and the same ``p`` goes into PV."""
     heads, seq, head_dim = q.shape
     scale = 1.0 / (head_dim**0.5)
     n_k = seq // block_k
@@ -106,12 +135,57 @@ def plain_flash(q, k, v, block_q: int, block_k: int, causal: bool = True):
                 s = s.masked_fill(qpos < kpos, float("-inf"))
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new)
+            if bf16exp:
+                p = torch.exp((s - m_new).bfloat16().float()).bfloat16().float()
+                pv = p
+            else:
+                p = torch.exp(s - m_new)
+                pv = p.bfloat16().float()
             l = alpha * l + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.matmul(p.bfloat16().float(), vb)
+            acc = acc * alpha + torch.matmul(pv, vb)
             m = m_new
         out[:, i * block_q:(i + 1) * block_q] = (acc / l).to(q.dtype)
     return out
+
+
+def _plain_unmasked(q, k, block_q: int, block_k: int, causal: bool, step):
+    """The stubs' shared loop: for every k-block ``j < hi``, with NO mask
+    (as the reference's stubs run), ``acc = step(acc, s, j)`` with ``s``
+    the f32 scores ``q.k^T * scale``; output ``bf16(acc)``, no ``/l``."""
+    heads, seq, head_dim = q.shape
+    scale = 1.0 / (head_dim**0.5)
+    n_k = seq // block_k
+    out = torch.empty_like(q)
+    for i in range(seq // block_q):
+        qb = q[:, i * block_q:(i + 1) * block_q].float()
+        hi = diag_stop(i, block_q, block_k) if causal else n_k
+        acc = torch.zeros((heads, block_q, head_dim), device=q.device)
+        for j in range(hi):
+            kb = k[:, j * block_k:(j + 1) * block_k].float()
+            acc = step(acc, torch.matmul(qb, kb.transpose(1, 2)) * scale, j)
+        out[:, i * block_q:(i + 1) * block_q] = acc.to(q.dtype)
+    return out
+
+
+def plain_softmax_stub(q, k, v, block_q: int, block_k: int, causal: bool = True):
+    """K6a's plain version: both matmuls, the softmax replaced by a cast,
+    ``acc += bf16((q.k^T * scale) * 0.001) . v`` over every ``j < hi``."""
+
+    def step(acc, s, j):
+        vb = v[:, j * block_k:(j + 1) * block_k].float()
+        return acc + torch.matmul((s * STUB_SCALE).bfloat16().float(), vb)
+
+    return _plain_unmasked(q, k, block_q, block_k, causal, step)
+
+
+def plain_qk_only(q, k, block_q: int, block_k: int, causal: bool = True):
+    """K6b's plain version: QK^T alone, ``acc += (q.k^T * scale)[:, :D]``
+    (the first ``head_dim`` keys of each block, so ``block_k >= head_dim``)
+    over every ``j < hi``; V is never read."""
+    head_dim = q.shape[-1]
+    return _plain_unmasked(
+        q, k, block_q, block_k, causal, lambda acc, s, j: acc + s[..., :head_dim]
+    )
 
 
 def _check_qkv(q, k, v, block_q: int, block_k: int) -> None:
@@ -127,12 +201,27 @@ def _check_qkv(q, k, v, block_q: int, block_k: int) -> None:
         raise ValueError(f"seq={seq} must tile by {block_q}/{block_k}")
 
 
-def flash_attention(q, k, v, block_q: int, block_k: int, causal: bool = True):
-    """K3: attention forward over ``(H, S, 128)`` bf16 on the logical
-    ``(block_q, block_k)`` tiling."""
+def plain_variant(q, k, v, block_q: int, block_k: int, causal: bool, variant: str):
+    """``variant``'s plain version (``qk_only`` ignores ``v``)."""
+    if variant == "softmax_stub":
+        return plain_softmax_stub(q, k, v, block_q, block_k, causal)
+    if variant == "qk_only":
+        return plain_qk_only(q, k, block_q, block_k, causal)
+    return plain_flash(q, k, v, block_q, block_k, causal, bf16exp=variant == "bf16exp")
+
+
+def flash_attention(
+    q, k, v, block_q: int, block_k: int, causal: bool = True, variant: str = "full"
+):
+    """Attention forward over ``(H, S, 128)`` bf16 on the logical
+    ``(block_q, block_k)`` tiling, by ``variant``'s kernel (K3-K6b)."""
+    if variant not in VARIANT_KERNELS:
+        raise ValueError(f"unknown flash variant {variant!r}")
     _check_qkv(q, k, v, block_q, block_k)
+    if variant == "qk_only" and block_k < q.shape[-1]:
+        raise ValueError(f"qk_only takes block_k >= head_dim, got {block_k}")
     if q.device.type == "cpu":
-        return plain_flash(q, k, v, block_q, block_k, causal)
+        return plain_variant(q, k, v, block_q, block_k, causal, variant)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
     heads, seq, head_dim = q.shape
@@ -143,14 +232,16 @@ def flash_attention(q, k, v, block_q: int, block_k: int, causal: bool = True):
             f"the kernel takes block_q a multiple of 16 up to {KERNEL_MAX_BLOCK_Q} "
             f"and block_k a multiple of {KERNEL_KEY_TILE}, got {block_q}/{block_k}"
         )
+    name, entry = VARIANT_KERNELS[variant]
     lib = _build.library()
     out = torch.empty_like(q)
-    err = lib.flash_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    tensors = (q, k, out) if variant == "qk_only" else (q, k, v, out)  # qk_only never reads V
+    err = getattr(lib, entry)(
+        *(t.data_ptr() for t in tensors),
         heads, seq, block_q, block_k, int(causal), _build.stream_ptr(q),
     )
-    _build.check(lib, err, "flash_fwd")
-    _build.count_launch("flash_fwd")
+    _build.check(lib, err, name)
+    _build.count_launch(name)
     return out
 
 
@@ -164,20 +255,19 @@ def make_flash_fn(
     variant: str = "full",
 ):
     """The flash-attention forward over ``(heads, seq, head_dim)`` bf16
-    Q/K/V: ``fn(q, k, v) -> out``. Only ``variant="full"`` is ported."""
+    Q/K/V: ``fn(q, k, v) -> out``, by any of the reference's five variants
+    (``qk_only`` takes ``v`` and never reads it)."""
     if seq % block_q or seq % block_k:
         raise ValueError(f"seq={seq} must tile by {block_q}/{block_k}")
     if variant not in REFERENCE_VARIANTS:
         raise ValueError(f"unknown flash variant {variant!r}")
-    if variant not in PORTED_VARIANTS:
-        raise ValueError(f"flash variant {variant!r} is not ported yet")
 
     def flash(q, k, v):
         if tuple(q.shape) != (heads, seq, head_dim):
             raise ValueError(
                 f"flash built for {(heads, seq, head_dim)}, got {tuple(q.shape)}"
             )
-        return flash_attention(q, k, v, block_q, block_k, causal)
+        return flash_attention(q, k, v, block_q, block_k, causal, variant)
 
     return flash
 
@@ -307,3 +397,115 @@ def run_flashattn_probe(
         )
     except Exception as e:
         return FlashAttnResult(False, error=str(e))
+
+
+def _pick_reading(readings, flops: float, peak: Optional[float]):
+    """``(per_iter_seconds, implausible)`` from a variant's readings, as
+    the reference picks them: the fastest reading whose rate stays within
+    1.05x the card's bf16 peak; when none does, the SLOWEST reading (the
+    fastest is the most corrupted by a timing-sync failure) and
+    ``implausible`` True. With no known peak every reading is plausible."""
+    sane = [r for r in readings if peak is None or flops / r / 1e12 <= peak * 1.05]
+    return (min(sane), False) if sane else (max(readings), True)
+
+
+def _attribution(variants: dict) -> dict:
+    """One block pair's cost split, in microseconds, from the variants'
+    ``per_pair_us`` (the reference's formulas)."""
+    t_full = variants["full"]["per_pair_us"]
+    t_pipe = variants["pipelined"]["per_pair_us"]
+    t_stub = variants["softmax_stub"]["per_pair_us"]
+    t_qk = variants["qk_only"]["per_pair_us"]
+    return {
+        # both matmuls and the K/V streaming, no softmax
+        "matmuls_us": t_stub,
+        # what the online softmax adds on top of the matmuls, serialized
+        "softmax_added_us": round(t_full - t_stub, PAIR_US_DIGITS),
+        "softmax_fraction_of_full": round(max(0.0, t_full - t_stub) / t_full, 4),
+        # the second matmul's (and V's streaming) cost over QK^T alone
+        "pv_added_us": round(t_stub - t_qk, PAIR_US_DIGITS),
+        # what issuing the next scores before the softmax recovers
+        "pipeline_recovered_us": round(t_full - t_pipe, PAIR_US_DIGITS),
+    }
+
+
+def run_flashattn_breakdown(
+    seq: int = 8192,
+    heads: int = 8,
+    head_dim: int = LANES,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
+    iters: int = 32,
+    device: Optional[str] = None,
+) -> dict:
+    """Measured phase attribution of K3's time: time ``full``,
+    ``pipelined``, ``softmax_stub`` and ``qk_only`` at one causal shape
+    and split one block pair's cost into the matmuls, the softmax, PV and
+    what pipelining recovers (``_attribution``).
+
+    Each variant's ``tflops`` is over the work IT does (``qk_only`` does
+    half the matmul FLOPs); ``per_pair_us``, microseconds per processed
+    (q-block, k-block) pair, compares across variants. Each reading is the
+    best of 2 with up to 2 more against the plausibility limit
+    (``_pick_reading``). On ``cuda`` unless ``device`` says otherwise;
+    without a GPU the default raises, and ``device="cpu"`` returns
+    ``{"ok": False}``: there is nothing to time there."""
+    dev = resolve_device(device)
+    bq = block_q if block_q is not None else _default_block(seq, BLOCK_Q_CAP)
+    bk = block_k if block_k is not None else _default_block(seq, BLOCK_K_CAP)
+    out = {"ok": False, "seq": seq, "heads": heads, "block_q": bq, "block_k": bk}
+    if dev.type != "cuda":
+        out["error"] = "breakdown requires the GPU"
+        return out
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    shape = (heads, seq, head_dim)
+    q, k, v = (
+        torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        for _ in range(3)
+    )
+    pairs = heads * sum(diag_stop(i, bq, bk) for i in range(seq // bq))
+    flops_full = causal_flops(seq, heads, head_dim, bq, bk)
+    gen_tag = device_generation(device_kind(dev))
+    peak = PEAK_BF16_TFLOPS.get(gen_tag) if gen_tag else None
+
+    def force(x):
+        torch.cuda.synchronize(dev)
+        return float(x[0, 0, :8].float().sum())
+
+    variants = {}
+    for name in BREAKDOWN_VARIANTS:
+        fn = make_flash_fn(seq, heads, head_dim, bq, bk, causal=True, variant=name)
+
+        def step(x, fn=fn):
+            return fn(x, k, v)
+
+        flops = flops_full / 2 if name == "qk_only" else flops_full
+        readings = [chain_per_iter_seconds(step, q, force, iters) for _ in range(2)]
+        while True:
+            per_iter, implausible = _pick_reading(readings, flops, peak)
+            if not implausible or len(readings) >= 4:
+                break
+            readings.append(chain_per_iter_seconds(step, q, force, iters))
+        variants[name] = {
+            "tflops": round(flops / per_iter / 1e12, 1),
+            "per_pair_us": round(per_iter / pairs * 1e6, PAIR_US_DIGITS),
+            "per_iter_ms": round(per_iter * 1e3, 3),
+            **({"implausible": True} if implausible else {}),
+        }
+    out["variants"] = variants
+    out["attribution"] = _attribution(variants)
+    out["measurement_clean"] = not any(v.get("implausible") for v in variants.values())
+    out["ok"] = True
+    return out
+
+
+if __name__ == "__main__":
+    # python -m tpu_operator_torch.workloads.flashattn [repeats]: the card's
+    # name, then the breakdown at the bench's shape as one JSON line per repeat
+    import json
+    import sys
+
+    print(device_kind(resolve_device()), flush=True)
+    for _ in range(int(sys.argv[1]) if len(sys.argv) > 1 else 1):
+        print(json.dumps(run_flashattn_breakdown()), flush=True)
