@@ -22,11 +22,20 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
 3b. run the flash-attention attribution path the same way: the bench's
    ``run_flashattn_breakdown(seq=8192, heads=8, iters=16)`` and the
    ``bf16exp`` probe at 8192 x 8 heads, each of K3-K6b launched;
+3c. the structural-variant path: hold K7a ``paired``, K7b ``bf16s`` and
+   K7c ``paired16`` against their plain versions (within 1e-2, and nearer
+   in mean-abs to their own softmax's plain version than to the other's;
+   K7b and K7c never equal to K3) and the f32 oracle (2e-2) at the
+   variants' causal shapes, at 1 x 512 with 64/64 blocks and at 8 x 8192,
+   K7a against K3 and K7c against K7b (bit for bit expected, within 1e-2
+   required); then, with the launch counts set to 0 just before and read
+   just after, run ``run_experiment`` with all three modes at 8192 x 8
+   heads, each of K7a-c launched; then time K7a-c;
 4. run the validator CLI for the same three components as subprocesses,
    each writing its status file into a temporary directory.
 
 Then it prints one ``kernels`` JSON line, each kernel's launches read from
-the path that runs it (K1-K3 phase 3, K4-K6b phase 3b).
+the path that runs it (K1-K3 phase 3, K4-K6b phase 3b, K7a-c phase 3c).
 
 The last line of standard output is one JSON object naming the device.
 Without a CUDA device, or without the ``tpu_operator_torch`` package
@@ -69,6 +78,17 @@ VARIANTS = [
     ("qk_only", "flash_qk_only", 181),
 ]
 ATTRIBUTION_KERNELS = ["flash_fwd"] + [name for _, name, _ in VARIANTS]
+EXPERIMENT_FILE = "scripts/fa_experiment.py"
+# (mode, kernel, line of the mode's branch of build(), the TPU kernel it
+# replaces), on the structural-variant path
+MODES = [
+    ("paired", "flash_fwd_paired", 90),
+    ("bf16s", "flash_fwd_bf16s", 109),
+    ("paired16", "flash_fwd_paired16", 69),
+]
+# the variants' causal shapes, and 64/64, where an odd number of unmasked
+# sub-tiles leaves K7a and K7c one to run alone
+STRUCTURAL_TEST_SHAPES = [s for s in VARIANT_TEST_SHAPES if s[4]] + [(1, 512, 64, 64, True)]
 BF16_ULP = 2.0**-7  # bf16 keeps 8 significant bits: one ulp is at most 2^-7 of |x|
 
 
@@ -357,6 +377,112 @@ def phase_attribution() -> dict:
     return launches
 
 
+def check_modes(fa, fx, q, k, v, bq, bk) -> dict:
+    """K7a-c against their plain versions and the f32 oracle, K7a against
+    K3 and K7c against K7b, at one causal shape; raises on a miss and
+    returns each mode's |kernel - plain|.
+
+    The two softmaxes (f32 for K7a, half width for K7b/K7c) differ by less
+    than the plain tolerance, so each kernel must also sit nearer, in
+    mean-abs, to its own softmax's plain version than to the other's, and
+    K7b/K7c must not equal K3: a kernel running the wrong softmax fails."""
+    ref = fa.reference_attention(q, k, v)
+    plain = {mode: fx.plain_mode(q, k, v, bq, bk, mode).float() for mode, _, _ in MODES}
+    other = {"paired": plain["bf16s"], "bf16s": plain["paired"], "paired16": plain["paired"]}
+    k3 = fa.flash_attention(q, k, v, bq, bk, True)
+    where = f"H={q.shape[0]} S={q.shape[1]} {bq}/{bk} causal"
+    outs, errs, ok = {}, {}, True
+    for mode, _, _ in MODES:
+        got = outs[mode] = fx.experiment_flash(q, k, v, bq, bk, mode)
+        if not torch.isfinite(got.float()).all():
+            raise RuntimeError(f"{mode} produced non-finite values at {where}")
+        diff = (got.float() - plain[mode]).abs()
+        errs[mode] = float(diff.max())
+        err_ref = float((got.float() - ref).abs().max())
+        mean_own = float(diff.mean())
+        mean_other = float((got.float() - other[mode]).abs().mean())
+        log(f"{mode} {where}: |kernel-plain|={errs[mode]:.3e} |kernel-oracle|={err_ref:.3e} "
+            f"mean|kernel-plain|={mean_own:.3e} mean|kernel-other softmax's plain|="
+            f"{mean_other:.3e}")
+        ok = (ok and errs[mode] <= FLASH_TOL_PLAIN and err_ref < FLASH_TOL_ORACLE
+              and mean_own < mean_other)
+        if mode != "paired" and torch.equal(got, k3):
+            log(f"{mode} {where}: equals K3, so it did not run the half-width softmax")
+            ok = False
+    for paired, single, base in (("paired", "K3", k3), ("paired16", "K7b", outs["bf16s"])):
+        err = float((outs[paired].float() - base.float()).abs().max())
+        log(f"{paired} {where}: bit-exact-vs-{single}={torch.equal(outs[paired], base)} "
+            f"|kernel-{single}|={err:.3e}")
+        ok = ok and err <= FLASH_TOL_PLAIN
+    if not ok:
+        raise RuntimeError(f"a structural variant disagrees with its reference at {where}")
+    return errs
+
+
+def phase_structural() -> list:
+    """K7a-c: checked, driven through ``run_experiment`` with the launch
+    counts read just after, then timed."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch.workloads import fa_experiment as fx
+    from tpu_operator_torch.workloads import flashattn as fa
+
+    dev = torch.device("cuda")
+    peak_flops, peak_bytes = peaks()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    heads, seq = 8, 8192
+    bq, bk = fa.BLOCK_Q_CAP, fa.BLOCK_K_CAP
+
+    def qkv(h, s):
+        return [torch.randn((h, s, fa.LANES), generator=gen, device=dev, dtype=torch.bfloat16)
+                for _ in range(3)]
+
+    worst = {mode: 0.0 for mode, _, _ in MODES}
+    for h, s, bq_, bk_, _ in STRUCTURAL_TEST_SHAPES + [(heads, seq, bq, bk, True)]:
+        for mode, err in check_modes(fa, fx, *qkv(h, s), bq_, bk_).items():
+            worst[mode] = max(worst[mode], err)
+        torch.cuda.empty_cache()
+
+    _build.reset_launches()
+    experiment = fx.run_experiment(fx.MODES, seq=seq, heads=heads, reps=7)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    log(f"fa_experiment: {json.dumps(experiment)}")
+    log(f"launches on the structural-variant path: {launches}")
+    for name, err in experiment["max_err"].items():
+        if not err < FLASH_TOL_ORACLE:
+            raise RuntimeError(f"{name} diverged from the oracle on the path: {err}")
+    for _, name, _ in MODES:
+        if launches[name] <= 0:
+            raise RuntimeError(f"the structural-variant path never launched {name}")
+
+    q, k, v = qkv(heads, seq)
+    useful = 4.0 * heads * fa.LANES * seq * (seq + 1) / 2.0
+    bound_flops, bound_io = useful / peak_flops, 4.0 * heads * seq * fa.LANES * 2 / peak_bytes
+    # (1, H, S, D): a batch dimension lets PyTorch pick its fused kernel
+    library_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True), 20)
+    rows = []
+    for mode, name, line in MODES:
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_operator_torch/csrc/flash.cu",
+            "replaces": f"{EXPERIMENT_FILE}:{line}",
+            "shape": [heads, seq, fa.LANES, bq, bk],
+            "launches": launches[name],
+            "max_abs_err": worst[mode],
+            "ms": time_ms(lambda: fx.experiment_flash(q, k, v, bq, bk, mode), 20),
+            "plain_ms": time_ms(lambda: fx.plain_mode(q, k, v, bq, bk, mode), 2, warmup=1),
+            "bound_ms": max(bound_flops, bound_io) * 1e3,
+            "bound_by": "operations" if bound_flops >= bound_io else "bytes",
+            "library_ms": library_ms,
+        })
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_cli() -> None:
     chain = [
         ("cuda", ["--matmul-size", "8192"], "cuda-ready"),
@@ -394,6 +520,7 @@ def main() -> int:
     variant_kernels = {name for _, name, _ in VARIANTS}
     for k in kernels:
         k["launches"] = (attribution if k["name"] in variant_kernels else launches)[k["name"]]
+    kernels += phase_structural()
     phase_cli()
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -37,7 +37,8 @@ NVCC_FLAGS = [
 
 KERNELS = (
     "tiled_copy", "bulk_copy", "flash_fwd", "flash_fwd_pipelined", "flash_fwd_bf16exp",
-    "flash_softmax_stub", "flash_qk_only",
+    "flash_softmax_stub", "flash_qk_only", "flash_fwd_paired", "flash_fwd_bf16s",
+    "flash_fwd_paired16",
 )
 launches = {name: 0 for name in KERNELS}
 
@@ -129,7 +130,8 @@ def library():
     lib.bulk_copy.argtypes = [vp, vp, i64, i32, vp]
     lib.bulk_copy.restype = i32
     for name in ("flash_fwd_bf16", "flash_fwd_pipelined", "flash_fwd_bf16exp",
-                 "flash_softmax_stub"):
+                 "flash_softmax_stub", "flash_fwd_paired", "flash_fwd_bf16s",
+                 "flash_fwd_paired16"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
         fn.restype = i32

@@ -60,6 +60,33 @@
 // stores, so full - pipelined isolates the reordering. Per element its
 // arithmetic is K3's, through the same device functions, so its output is
 // K3's bit for bit.
+//
+// K7, the structural-variant instrument (tpu_operator_torch/workloads/
+// fa_experiment.py), replaces the three modes of build() in
+// scripts/fa_experiment.py (pallas_call at :133), all causal:
+// K7b flash_fwd_bf16s replaces "bf16s" (scores_b/soft_b, :52-67): the
+// scores rounded to bf16 once, s_b = bf16(s*scale); m = max(m, rowmax s_b)
+// kept in f32, natural-log units; p = exp(s_b - bf16(m)) in bf16; l sums p
+// in f32; the masked tail is bf16 -inf. It is a fifth Step of
+// flash_fwd_kernel whose softmax runs on packed __nv_bfloat162 pairs (the S
+// fragment's (e0, e1) and (e2, e3) are adjacent columns of rows g and g+8):
+// __hmax2 for the row max, __hsub2 and h2exp for p, and the packed p is
+// the PV A fragment as it stands, with no pack_bf16.
+// K7a flash_fwd_paired replaces "paired" (:90-108) and K7c
+// flash_fwd_paired16 replaces "paired16" (:69-89): K3's and K7b's step in
+// a loop that pairs sub-tiles over the unmasked range. The reference pairs
+// k-blocks, its unit of update; the port's unit is the 64-key sub-tile, so
+// one stage call fills two sub-tiles of K and V (69,632 B of dynamic shared
+// memory, as K4) behind one pair of barriers, both score products are
+// issued, then softmax+PV runs on the first S set and on the second. K7c
+// rounds each set to bf16 as its softmax starts (lazy rounding); the
+// reference rounds both sets before either softmax, which gives the same
+// values in another order of issue and was measured slower on the H100,
+// so K7c is "paired16 (lazy rounding)". No S is carried across
+// iterations (K4 carries one and keeps a barrier pair per sub-tile). An
+// odd leftover sub-tile runs alone, then the masked tail as K3 runs it:
+// the reference's body2/body1/tail. Per element the arithmetic is K3's
+// (K7b's), so K7a equals K3 and K7c equals K7b bit for bit.
 // Not yet done here: cp.async/TMA double buffering and wgmma.
 
 #include <cuda_bf16.h>
@@ -75,9 +102,9 @@ constexpr int LDS = D + 8;    // padded shared row, in bf16 elements
 constexpr int MAX_WARPS = 8;  // block_q <= 128
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float STUB_SCALE = 0.001f;  // softmax_stub's p = bf16((s*scale)*0.001)
-constexpr int PIPE_SMEM = 4 * KT * LDS * 2;  // K4: two stages of K and V, bytes
+constexpr int PIPE_SMEM = 4 * KT * LDS * 2;  // K4, K7a, K7c: two stages of K and V, bytes
 
-enum class Step { kFull, kBf16Exp, kStub, kQkOnly };
+enum class Step { kFull, kBf16Exp, kStub, kQkOnly, kBf16S };
 
 // asm volatile: the compiler keeps every product, including the score
 // products whose result qk_only discards (sub-tiles past the first 128 keys
@@ -92,9 +119,16 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return bits(__floats2bfloat162_rn(lo, hi));
+}
+
+__device__ __forceinline__ __nv_bfloat162 bf16x2(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
 }
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -130,23 +164,31 @@ __device__ __forceinline__ void scores(const uint32_t (&qa)[D / 16][4],
   }
 }
 
+// acc += pa . V for one 16-key slice kk of a sub-tile; pa is its A
+// fragment, bf16 pairs of p in the S fragment's layout.
+__device__ __forceinline__ void pv_slice(const uint32_t (&pa)[4], int kk,
+                                         const __nv_bfloat16* __restrict__ Vs,
+                                         float (&acc)[D / 8][4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const __nv_bfloat16* vp = Vs + (kk * 16 + 2 * t) * LDS + nt * 8 + g;
+    mma16816(acc[nt], pa, ld_col_pair(vp), ld_col_pair(vp + 8 * LDS));
+  }
+}
+
 // acc += bf16(p) . V for one sub-tile; p is in the S fragment's layout,
 // which is the A fragment's.
 __device__ __forceinline__ void pv(const float (&p)[KT / 8][4],
                                    const __nv_bfloat16* __restrict__ Vs,
                                    float (&acc)[D / 8][4], int lane) {
-  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < KT / 16; ++kk) {
     const uint32_t pa[4] = {
         pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
         pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
         pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const __nv_bfloat16* vp = Vs + (kk * 16 + 2 * t) * LDS + nt * 8 + g;
-      mma16816(acc[nt], pa, ld_col_pair(vp), ld_col_pair(vp + 8 * LDS));
-    }
+    pv_slice(pa, kk, Vs, acc, lane);
   }
 }
 
@@ -212,6 +254,98 @@ __device__ __forceinline__ void softmax_pv(float (&s)[KT / 8][4],
   pv(s, Vs, acc, lane);
 }
 
+// K7b's scores_b on packed bf16 pairs: sb[nt][r] = bf16(s*scale) of row
+// g + 8r, columns 2t and 2t+1 of n-tile nt, with bf16 -inf where MASKED
+// hides a key.
+template <bool MASKED>
+__device__ __forceinline__ void scores_b(const float (&s)[KT / 8][4], uint32_t (&sb)[KT / 8][2],
+                                         float scale, int qrow, int k0, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < KT / 8; ++nt) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // the product kept rounded, as the reference's s*scale is
+      v[e] = __fmul_rn(s[nt][e], scale);
+      if (MASKED) {
+        const int qpos = qrow + (e >> 1) * 8;
+        const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
+        if (kpos > qpos) v[e] = -INFINITY;
+      }
+    }
+    sb[nt][0] = bits(__floats2bfloat162_rn(v[0], v[1]));
+    sb[nt][1] = bits(__floats2bfloat162_rn(v[2], v[3]));
+  }
+}
+
+// K7b's soft_b and PV on the packed scores sb: m_new = max(m, rowmax s_b)
+// in f32, natural-log units; alpha = exp(m - m_new) in f32; p = exp(s_b -
+// bf16(m_new)) in bf16; l = alpha*l + sum_f32 p; acc = acc*alpha + p.v,
+// with p as it is as the A fragment.
+__device__ __forceinline__ void soft_b(uint32_t (&sb)[KT / 8][2],
+                                       const __nv_bfloat16* __restrict__ Vs,
+                                       float (&acc)[D / 8][4], float (&m)[2], float (&l)[2],
+                                       int lane) {
+  float alpha[2];
+  __nv_bfloat162 ref2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    __nv_bfloat162 mx2 = bf16x2(sb[0][r]);
+#pragma unroll
+    for (int nt = 1; nt < KT / 8; ++nt) mx2 = __hmax2(mx2, bf16x2(sb[nt][r]));
+    float mx = fmaxf(__low2float(mx2), __high2float(mx2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(m[r], mx);  // a max of bf16 values: bf16(m_new) is exact
+    // a row with every key so far masked keeps m = -inf; use 0 as its
+    // reference so exp sees -inf - 0 and gives 0, never NaN
+    const float ref = mx == -INFINITY ? 0.f : mx;
+    alpha[r] = exp2f((m[r] - ref) * LOG2E);
+    m[r] = mx;
+    ref2[r] = __float2bfloat162_rn(ref);
+  }
+  float lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < KT / 8; ++nt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const __nv_bfloat162 p = h2exp(__hsub2(bf16x2(sb[nt][r]), ref2[r]));
+      sb[nt][r] = bits(p);
+      lsum[r] += __low2float(p) + __high2float(p);
+    }
+  }
+  l[0] = l[0] * alpha[0] + lsum[0];
+  l[1] = l[1] * alpha[1] + lsum[1];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    acc[nt][0] *= alpha[0];
+    acc[nt][1] *= alpha[0];
+    acc[nt][2] *= alpha[1];
+    acc[nt][3] *= alpha[1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) {
+    const uint32_t pa[4] = {sb[2 * kk][0], sb[2 * kk][1], sb[2 * kk + 1][0], sb[2 * kk + 1][1]};
+    pv_slice(pa, kk, Vs, acc, lane);
+  }
+}
+
+// The online-softmax + PV step of the attention variants (K3, K5, K7b).
+template <Step STEP, bool MASKED>
+__device__ __forceinline__ void attend(float (&s)[KT / 8][4],
+                                       const __nv_bfloat16* __restrict__ Vs,
+                                       float (&acc)[D / 8][4], float (&m)[2], float (&l)[2],
+                                       float scale, int qrow, int k0, int lane) {
+  if constexpr (STEP == Step::kBf16S) {
+    uint32_t sb[KT / 8][2];
+    scores_b<MASKED>(s, sb, scale, qrow, k0, lane);
+    soft_b(sb, Vs, acc, m, l, lane);
+  } else {
+    softmax_pv<STEP == Step::kBf16Exp, MASKED>(s, Vs, acc, m, l, scale, qrow, k0, lane);
+  }
+}
+
 // A warp's 16 query rows into registers as mma A fragments.
 __device__ __forceinline__ void load_q(const __nv_bfloat16* __restrict__ q, int qrow,
                                        uint32_t (&qa)[D / 16][4], int lane) {
@@ -227,15 +361,16 @@ __device__ __forceinline__ void load_q(const __nv_bfloat16* __restrict__ q, int 
   }
 }
 
-// 64 rows of K (and of V, unless qk_only) from device memory into the
+// ROWS rows of K (and of V, unless qk_only) from device memory into the
 // padded shared tiles, 16 bytes a thread; barriers on both sides so the
-// previous sub-tile is fully consumed and this one fully written.
-template <bool WITH_V = true>
+// previous sub-tile is fully consumed and this one fully written. K7a/K7c
+// stage two sub-tiles (ROWS = 2*KT) at once, behind one pair of barriers.
+template <bool WITH_V = true, int ROWS = KT>
 __device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ k,
                                       const __nv_bfloat16* __restrict__ v,
                                       __nv_bfloat16* Ks, __nv_bfloat16* Vs, int k0) {
   __syncthreads();
-  for (int idx = threadIdx.x; idx < KT * D / 8; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < ROWS * D / 8; idx += blockDim.x) {
     const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
     *reinterpret_cast<uint4*>(&Ks[r * LDS + c]) =
         *reinterpret_cast<const uint4*>(&k[(size_t)(k0 + r) * D + c]);
@@ -270,7 +405,7 @@ __device__ __forceinline__ void finish_l(float (&l)[2]) {
   }
 }
 
-// K3, K5, K6a, K6b. scale: scale*log2e for kFull, 1/sqrt(D) otherwise.
+// K3, K5, K6a, K6b, K7b. scale: scale*log2e for kFull, 1/sqrt(D) otherwise.
 template <Step STEP>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -330,17 +465,16 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     const float one[2] = {1.f, 1.f};
     store_out(o, qrow, acc, one, lane);
   } else {
-    constexpr bool E16 = STEP == Step::kBf16Exp;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     for (int kt = 0; kt < n_full * sub; ++kt) {  // below the diagonal: no mask
       stage(k, v, Ks, Vs, kt * KT);
       scores(qa, Ks, s, lane);
-      softmax_pv<E16, false>(s, Vs, acc, m, l, scale, qrow, kt * KT, lane);
+      attend<STEP, false>(s, Vs, acc, m, l, scale, qrow, kt * KT, lane);
     }
     for (int kt = n_full * sub; kt < hi * sub; ++kt) {  // the diagonal tail
       stage(k, v, Ks, Vs, kt * KT);
       scores(qa, Ks, s, lane);
-      softmax_pv<E16, true>(s, Vs, acc, m, l, scale, qrow, kt * KT, lane);
+      attend<STEP, true>(s, Vs, acc, m, l, scale, qrow, kt * KT, lane);
     }
     finish_l(l);
     store_out(o, qrow, acc, l, lane);
@@ -411,6 +545,66 @@ flash_fwd_pipelined_kernel(const __nv_bfloat16* __restrict__ q,
   store_out(o, qrow, acc, l, lane);
 }
 
+// K7a (BF16S false: K3's step, scale*log2e) and K7c (BF16S true: K7b's
+// step, 1/sqrt(D)): over the unmasked range, pairs of sub-tiles staged
+// together (K rows 0-127 then V rows 0-127 in dynamic shared memory), both
+// score products issued before either softmax; then an odd leftover
+// sub-tile alone; then the masked tail as K3 runs it.
+template <bool BF16S>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+flash_fwd_paired_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                        int seq, int block_q, int block_k, int causal, float scale) {
+  constexpr Step STEP = BF16S ? Step::kBf16S : Step::kFull;
+  extern __shared__ uint4 smem_raw[];  // 16-byte aligned
+  __nv_bfloat16* const Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* const Vs = Ks + 2 * KT * LDS;
+
+  const int i = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const size_t head = (size_t)blockIdx.y * seq * D;
+  q += head;
+  k += head;
+  v += head;
+  o += head;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qrow = i * block_q + warp * 16 + (lane >> 2);
+
+  uint32_t qa[D / 16][4];
+  load_q(q, qrow, qa, lane);
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float sa[KT / 8][4], sb[KT / 8][4];  // S of the pair's first and second sub-tile
+
+  const int hi = causal ? ((i + 1) * block_q + block_k - 1) / block_k : seq / block_k;
+  const int n_full = causal ? (i * block_q) / block_k : hi;
+  const int sub = block_k / KT;
+  const int nf = n_full * sub;  // unmasked sub-tiles
+
+  int kt = 0;
+  for (; kt + 1 < nf; kt += 2) {  // body2
+    stage<true, 2 * KT>(k, v, Ks, Vs, kt * KT);
+    scores(qa, Ks, sa, lane);
+    scores(qa, Ks + KT * LDS, sb, lane);
+    attend<STEP, false>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
+    attend<STEP, false>(sb, Vs + KT * LDS, acc, m, l, scale, qrow, (kt + 1) * KT, lane);
+  }
+  if (kt < nf) {  // body1: the odd leftover
+    stage(k, v, Ks, Vs, kt * KT);
+    scores(qa, Ks, sa, lane);
+    attend<STEP, false>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
+    ++kt;
+  }
+  for (; kt < hi * sub; ++kt) {  // the diagonal tail
+    stage(k, v, Ks, Vs, kt * KT);
+    scores(qa, Ks, sa, lane);
+    attend<STEP, true>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
+  }
+  finish_l(l);
+  store_out(o, qrow, acc, l, lane);
+}
+
 bool bad_shape(int heads, int seq, int block_q, int block_k) {
   return heads <= 0 || seq <= 0 || block_q <= 0 || block_q % 16 ||
          block_q > MAX_WARPS * 16 || block_k <= 0 || block_k % KT || seq % block_q ||
@@ -430,6 +624,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int heads, int 
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq, block_q,
       block_k, causal, STEP == Step::kFull ? SCALE_LOG2 : SCALE);
+  return (int)cudaGetLastError();
+}
+
+using FlashKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+                             __nv_bfloat16*, int, int, int, int, float);
+
+// K4, K7a, K7c: two stages of K and V in dynamic shared memory, above the
+// 48 KB a kernel gets without asking.
+int launch_two_stage(FlashKernel kernel, const void* q, const void* k, const void* v, void* o,
+                     int heads, int seq, int block_q, int block_k, int causal, float scale,
+                     void* stream) {
+  if (bad_shape(heads, seq, block_q, block_k)) return cudaErrorInvalidValue;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PIPE_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid(seq / block_q, heads);
+  kernel<<<grid, (block_q / 16) * 32, PIPE_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq, block_q,
+      block_k, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -459,17 +673,29 @@ extern "C" int flash_qk_only(const void* q, const void* k, void* o, int heads, i
                                stream);
 }
 
+extern "C" int flash_fwd_bf16s(const void* q, const void* k, const void* v, void* o,
+                               int heads, int seq, int block_q, int block_k, int causal,
+                               void* stream) {
+  return launch<Step::kBf16S>(q, k, v, o, heads, seq, block_q, block_k, causal, stream);
+}
+
 extern "C" int flash_fwd_pipelined(const void* q, const void* k, const void* v, void* o,
                                    int heads, int seq, int block_q, int block_k, int causal,
                                    void* stream) {
-  if (bad_shape(heads, seq, block_q, block_k)) return cudaErrorInvalidValue;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_pipelined_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PIPE_SMEM);
-  if (attr != cudaSuccess) return (int)attr;
-  dim3 grid(seq / block_q, heads);
-  flash_fwd_pipelined_kernel<<<grid, (block_q / 16) * 32, PIPE_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq, block_q,
-      block_k, causal, SCALE_LOG2);
-  return (int)cudaGetLastError();
+  return launch_two_stage(flash_fwd_pipelined_kernel, q, k, v, o, heads, seq, block_q, block_k,
+                          causal, SCALE_LOG2, stream);
+}
+
+extern "C" int flash_fwd_paired(const void* q, const void* k, const void* v, void* o,
+                                int heads, int seq, int block_q, int block_k, int causal,
+                                void* stream) {
+  return launch_two_stage(flash_fwd_paired_kernel<false>, q, k, v, o, heads, seq, block_q,
+                          block_k, causal, SCALE_LOG2, stream);
+}
+
+extern "C" int flash_fwd_paired16(const void* q, const void* k, const void* v, void* o,
+                                  int heads, int seq, int block_q, int block_k, int causal,
+                                  void* stream) {
+  return launch_two_stage(flash_fwd_paired_kernel<true>, q, k, v, o, heads, seq, block_q,
+                          block_k, causal, SCALE, stream);
 }

@@ -103,7 +103,8 @@ class FlashAttnResult:
 
 
 def plain_flash(
-    q, k, v, block_q: int, block_k: int, causal: bool = True, bf16exp: bool = False
+    q, k, v, block_q: int, block_k: int, causal: bool = True, bf16exp: bool = False,
+    bf16s: bool = False,
 ):
     """The plain version of K3 (``full``) and of K4 (``pipelined``, which
     computes the same function; only the kernel's instruction order
@@ -113,7 +114,15 @@ def plain_flash(
 
     ``bf16exp=True`` is K5's plain version: ``p = exp(bf16(s - m_new))``
     rounded to bf16 (the difference taken in f32, natural-log units), ``l``
-    sums that bf16 ``p`` in f32, and the same ``p`` goes into PV."""
+    sums that bf16 ``p`` in f32, and the same ``p`` goes into PV.
+
+    ``bf16s=True`` is the plain version of the structural variants K7b and
+    K7c (the reference's ``soft_b``): the scores rounded once,
+    ``s_b = bf16(s)`` (bf16 -inf where masked), ``m_new = max(m, f32(rowmax
+    s_b))``, ``p = exp(s_b - bf16(m_new))`` in bf16, ``l`` sums that ``p``
+    in f32, and the same ``p`` goes into PV."""
+    if bf16exp and bf16s:
+        raise ValueError("bf16exp and bf16s are two softmaxes; pick one")
     heads, seq, head_dim = q.shape
     scale = 1.0 / (head_dim**0.5)
     n_k = seq // block_k
@@ -130,14 +139,18 @@ def plain_flash(
             kb = k[:, j * block_k:(j + 1) * block_k].float()
             vb = v[:, j * block_k:(j + 1) * block_k].float()
             s = torch.matmul(qb, kb.transpose(1, 2)) * scale
+            if bf16s:
+                s = s.bfloat16()
             if j >= n_full:  # only the diagonal tail is masked
                 kpos = j * block_k + torch.arange(block_k, device=q.device)[None, :]
                 s = s.masked_fill(qpos < kpos, float("-inf"))
-            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True).float())
             alpha = torch.exp(m - m_new)
             if bf16exp:
                 p = torch.exp((s - m_new).bfloat16().float()).bfloat16().float()
                 pv = p
+            elif bf16s:
+                p = pv = torch.exp(s - m_new.bfloat16()).float()
             else:
                 p = torch.exp(s - m_new)
                 pv = p.bfloat16().float()
@@ -222,6 +235,17 @@ def flash_attention(
         raise ValueError(f"qk_only takes block_k >= head_dim, got {block_k}")
     if q.device.type == "cpu":
         return plain_variant(q, k, v, block_q, block_k, causal, variant)
+    name, entry = VARIANT_KERNELS[variant]
+    inputs = (q, k) if variant == "qk_only" else (q, k, v)  # qk_only never reads V
+    return _launch(name, entry, inputs, block_q, block_k, causal)
+
+
+def _launch(name: str, entry: str, inputs, block_q: int, block_k: int, causal: bool):
+    """Launch the flash kernel ``entry`` of ``csrc/flash.cu`` on CUDA
+    inputs ``(q, k[, v])`` already checked by ``_check_qkv``, count one
+    launch of ``name``, return the output; raises on a shape the kernel
+    does not take and on any CUDA error."""
+    q = inputs[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
     heads, seq, head_dim = q.shape
@@ -232,12 +256,10 @@ def flash_attention(
             f"the kernel takes block_q a multiple of 16 up to {KERNEL_MAX_BLOCK_Q} "
             f"and block_k a multiple of {KERNEL_KEY_TILE}, got {block_q}/{block_k}"
         )
-    name, entry = VARIANT_KERNELS[variant]
     lib = _build.library()
     out = torch.empty_like(q)
-    tensors = (q, k, out) if variant == "qk_only" else (q, k, v, out)  # qk_only never reads V
     err = getattr(lib, entry)(
-        *(t.data_ptr() for t in tensors),
+        *(t.data_ptr() for t in (*inputs, out)),
         heads, seq, block_q, block_k, int(causal), _build.stream_ptr(q),
     )
     _build.check(lib, err, name)
