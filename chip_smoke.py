@@ -7,15 +7,20 @@ Run from the root of the repository on a machine with one H100 and the
 CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
 
 1. print the card (``nvidia-smi`` name and power limit), torch and nvcc
-   versions, and build the kernels from ``tpu_operator_torch/csrc``;
+   versions, build the kernels from ``tpu_operator_torch/csrc`` (ptxas's
+   registers, spills and ``wgmma`` warnings printed), and count ``HGMMA``
+   and ``UTMALDG`` in K3's SASS (``cuobjdump``; none of either fails);
 2. hold each kernel against its plain PyTorch version on the card (the
    copies bit-exact; flash attention K3 and the variants K4 ``pipelined``
    and K5 ``bf16exp`` within 1e-2 of their plain versions and within 2e-2
-   of the f32 oracle, K4 also against K3 (bit for bit expected, within
-   1e-2 required); the
-   instruments K6a ``softmax_stub`` within 1e-2 and K6b ``qk_only`` within
-   one bf16 ulp of theirs), time kernel, plain version and one library
-   call at the main path's shapes;
+   of the f32 oracle, K3 also at the edges of its Hopper kernel
+   (``K3_EDGE_SHAPES``), K4 also against K3 (whether bit for bit is
+   logged, within 1e-2 required); the instruments K6a ``softmax_stub``
+   within 1e-2 and K6b ``qk_only`` within one bf16 ulp of theirs), check
+   that K3 refuses ``block_q`` 32 with ``ValueError`` and launches
+   nothing and that its host cost per call stays within
+   ``K3_HOST_LIMIT_US`` of K5's (its tensor maps), and time kernel, plain
+   version and one library call at the main path's shapes;
 3. run the main path in-process at its full operating points (matmul 8192,
    membw 2 GiB, flash attention 8192 x 8 heads) with the launch counts set
    to 0 just before and read just after;
@@ -27,10 +32,10 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    in mean-abs to their own softmax's plain version than to the other's;
    K7b and K7c never equal to K3) and the f32 oracle (2e-2) at the
    variants' causal shapes, at 1 x 512 with 64/64 blocks and at 8 x 8192,
-   K7a against K3 and K7c against K7b (bit for bit expected, within 1e-2
-   required); then, with the launch counts set to 0 just before and read
-   just after, run ``run_experiment`` with all three modes at 8192 x 8
-   heads, each of K7a-c launched; then time K7a-c;
+   K7a against K3 and K7c against K7b (whether bit for bit is logged,
+   within 1e-2 required); then, with the launch counts set to 0 just
+   before and read just after, run ``run_experiment`` with all three
+   modes at 8192 x 8 heads, each of K7a-c launched; then time K7a-c;
 4. run the validator CLI for the same three components as subprocesses,
    each writing its status file into a temporary directory.
 
@@ -65,6 +70,20 @@ FLASH_TEST_SHAPES = [
     (2, 256, 128, 128, False),
     (1, 512, 128, 256, True),
 ]
+# K3's Hopper kernel at its edges: one warpgroup and a q-block with a
+# single sub-tile (64/64), one warpgroup (64/128), eight sub-tiles per
+# k-block so the ring wraps inside a block (128/512), and no mask
+K3_EDGE_SHAPES = [
+    (1, 128, 64, 64, True),
+    (2, 256, 64, 128, True),
+    (2, 1024, 128, 512, True),
+    (2, 1024, 128, 128, False),
+]
+K3_KERNEL = "flash_fwd_wgmma_kernel"  # K3's __global__ in csrc/flash.cu
+# host microseconds a K3 call may spend beyond K5's (its tensor maps): 5%
+# of K3's ~0.39 ms at the main path's shape, where the host would start to
+# set the pace of a chain of launches
+K3_HOST_LIMIT_US = 20.0
 # the variants' shapes: the reference's seq-1024 test at the port's blocks
 VARIANT_TEST_SHAPES = FLASH_TEST_SHAPES + [
     (2, 1024, 128, 128, True),
@@ -132,8 +151,9 @@ def phase_setup():
     if os.path.exists(ptxas):
         with open(ptxas) as f:
             for line in f:
-                if "registers" in line or "spill" in line or "Compiling" in line:
+                if any(w in line for w in ("registers", "spill", "Compiling", "wgmma")):
                     log("  ptxas " + line.strip())
+    k3_sass()
 
 
 def peaks():
@@ -201,7 +221,7 @@ def phase_kernels() -> list:
     heads, seq = 8, 8192
     bq, bk = fa._default_block(seq, fa.BLOCK_Q_CAP), fa._default_block(seq, fa.BLOCK_K_CAP)
     worst = 0.0
-    for h, s, bq_, bk_, causal in FLASH_TEST_SHAPES + [(heads, seq, bq, bk, True)]:
+    for h, s, bq_, bk_, causal in FLASH_TEST_SHAPES + K3_EDGE_SHAPES + [(heads, seq, bq, bk, True)]:
         q, k, v = qkv(h, s)
         got = fa.flash_attention(q, k, v, bq_, bk_, causal).float()
         plain = fa.plain_flash(q, k, v, bq_, bk_, causal).float()
@@ -219,6 +239,8 @@ def phase_kernels() -> list:
         worst = max(worst, err_plain)
         del got, plain, ref
     torch.cuda.empty_cache()
+    k3_refuses_block_q_32(fa, q, k, v)
+    k3_host_cost(fa, qkv)
     useful = 4.0 * heads * fa.LANES * seq * (seq + 1) / 2.0
     io_bytes = 4.0 * heads * seq * fa.LANES * 2
     bound_flops, bound_io = useful / peak_flops, io_bytes / peak_bytes
@@ -242,6 +264,68 @@ def phase_kernels() -> list:
     torch.cuda.empty_cache()
     kernels += variant_rows(fa, qkv, peak_flops, peak_bytes)
     return kernels
+
+
+def k3_refuses_block_q_32(fa, q, k, v) -> None:
+    """K3 runs whole warpgroups: block_q 32 must raise ValueError on the
+    card before any launch."""
+    from tpu_operator_torch import _build
+
+    before = _build.launches["flash_fwd"]
+    try:
+        fa.flash_attention(q, k, v, 32, 128, True)
+    except ValueError as e:
+        log(f"flash_fwd at 32/128 refused: {e}")
+    else:
+        raise RuntimeError("flash_fwd took block_q 32")
+    if _build.launches["flash_fwd"] != before:
+        raise RuntimeError("flash_fwd launched at block_q 32")
+
+
+def k3_host_cost(fa, qkv) -> None:
+    """Host microseconds a call of K3 (which encodes three tensor maps per
+    call) and of K5 (no tensor maps) take at a shape whose kernels are
+    shorter than their enqueue, so the host sets the pace; the least of
+    three readings each. Fails when the maps cost more than
+    K3_HOST_LIMIT_US a call: then they must be cached."""
+    q, k, v = qkv(1, 128)
+
+    def host_us(variant):
+        run = lambda: fa.flash_attention(q, k, v, 64, 64, True, variant)  # noqa: E731
+        for _ in range(10):
+            run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            run()
+        us = (time.perf_counter() - t0) / 100 * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    k3, k5 = min(host_us("full") for _ in range(3)), min(host_us("bf16exp") for _ in range(3))
+    log(f"host us per call at 1 x 128, 64/64: K3 {k3:.2f}, K5 {k5:.2f}")
+    if k3 - k5 > K3_HOST_LIMIT_US:
+        raise RuntimeError(f"K3's tensor maps cost {k3 - k5:.1f} us a call, "
+                           f"above {K3_HOST_LIMIT_US} us")
+
+
+def k3_sass() -> None:
+    """Count HGMMA (wgmma) and UTMALDG (TMA loads) in K3's kernel in the
+    built library's SASS; fail if K3 has no HGMMA or no UTMALDG."""
+    from tpu_operator_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", _build.build_info["path"]], capture_output=True, text=True,
+        timeout=120,
+    ).stdout
+    bodies = [f for f in sass.split("Function : ")[1:] if K3_KERNEL in f.split("\n", 1)[0]]
+    if len(bodies) != 1:
+        raise RuntimeError(f"{K3_KERNEL} found {len(bodies)} times in the SASS")
+    hgmma, utmaldg = bodies[0].count("HGMMA"), bodies[0].count("UTMALDG")
+    log(f"{K3_KERNEL} SASS: HGMMA {hgmma}, UTMALDG {utmaldg}, HMMA {bodies[0].count(' HMMA')}")
+    if hgmma == 0 or utmaldg == 0:
+        raise RuntimeError(f"{K3_KERNEL} has HGMMA {hgmma} and UTMALDG {utmaldg}")
 
 
 def check_variant(fa, variant, q, k, v, bq, bk, causal) -> float:

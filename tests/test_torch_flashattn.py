@@ -21,11 +21,18 @@ def bf16_qkv(heads, seq, seed, dim=128):
     ]
 
 
-# (seq, heads, block_q, block_k, causal): the shapes of tests/test_flashattn.py
+# (seq, heads, block_q, block_k, causal): the shapes of tests/test_flashattn.py,
+# then the edges of K3's Hopper kernel: one warpgroup and a q-block with a
+# single sub-tile (64/64), one warpgroup over two (64/128), eight sub-tiles
+# per k-block so its ring wraps inside a block (128/512), and no mask
 SHAPES = [
     (256, 2, 128, 128, True),
     (256, 2, 128, 128, False),
     (512, 1, 128, 256, True),
+    (128, 1, 64, 64, True),
+    (256, 2, 64, 128, True),
+    (1024, 2, 128, 512, True),
+    (1024, 2, 128, 128, False),
 ]
 
 
@@ -141,6 +148,37 @@ def test_probe_cpu():
     assert res.max_err < 2e-2
     assert res.platform == "cpu" and res.tflops == 0.0  # numerics only off the card
     assert res.to_dict().keys() == ref.FlashAttnResult(True).to_dict().keys()
+
+
+@pytest.mark.parametrize("block_q,takes", [(32, False), (64, True), (128, True), (256, False)])
+def test_k3_tiling_contract(block_q, takes):
+    """K3 runs whole warpgroups of 64 query rows: block_q 64 or 128. The
+    check runs before any CUDA call, so it is the same here as on the card."""
+    if takes:
+        port.check_kernel_tiling("flash_fwd", block_q, 128)
+    else:
+        with pytest.raises(ValueError, match="block_q 64 or 128"):
+            port.check_kernel_tiling("flash_fwd", block_q, 128)
+
+
+def test_synchronous_kernels_keep_their_tiling_contract():
+    """K4-K7c keep block_q a multiple of 16 up to 128; every kernel takes
+    block_k a multiple of 64 only."""
+    port.check_kernel_tiling("flash_fwd_pipelined", 32, 128)
+    port.check_kernel_tiling("flash_fwd_paired", 16, 64)
+    for name, bq, bk in (("flash_fwd_pipelined", 144, 128), ("flash_fwd_bf16exp", 24, 128),
+                         ("flash_fwd", 128, 96), ("flash_qk_only", 64, 0)):
+        with pytest.raises(ValueError):
+            port.check_kernel_tiling(name, bq, bk)
+
+
+def test_cpu_path_takes_any_tiling_the_reference_does():
+    """The plain version is not bound by the kernels' contract: block_q 32
+    runs on the CPU and agrees with 128."""
+    q, k, v = (convert.to_torch(a) for a in bf16_qkv(1, 128, seed=3))
+    a = port.flash_attention(q, k, v, 32, 64)
+    b = port.flash_attention(q, k, v, 128, 64)
+    assert float((a.float() - b.float()).abs().max()) <= 1e-2
 
 
 def test_plain_version_launches_nothing():

@@ -103,6 +103,28 @@ def _compile(out_dir: Path) -> str:
     return "\n".join(log)
 
 
+def bind(lib):
+    """Set every C entry's ``argtypes`` and ``restype`` on ``lib``: pointers
+    and the stream as ``c_void_p`` (ctypes would cut them to 32 bits
+    otherwise), ints as ``c_int``, byte counts as ``c_longlong``."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.tiled_copy_f32.argtypes = [vp, vp, i64, vp]
+    lib.tiled_copy_f32.restype = i32
+    lib.bulk_copy.argtypes = [vp, vp, i64, i32, vp]
+    lib.bulk_copy.restype = i32
+    for name in ("flash_fwd_bf16", "flash_fwd_pipelined", "flash_fwd_bf16exp",
+                 "flash_softmax_stub", "flash_fwd_paired", "flash_fwd_bf16s",
+                 "flash_fwd_paired16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+        fn.restype = i32
+    lib.flash_qk_only.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]  # no V
+    lib.flash_qk_only.restype = i32
+    lib.cuda_error_string.argtypes = [i32]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library():
     """The loaded kernel library, built first if this source hash has no
     build yet. Raises when the build fails; there is no fallback."""
@@ -123,22 +145,7 @@ def library():
                 built = True
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
-    lib = ctypes.CDLL(str(so))
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.tiled_copy_f32.argtypes = [vp, vp, i64, vp]
-    lib.tiled_copy_f32.restype = i32
-    lib.bulk_copy.argtypes = [vp, vp, i64, i32, vp]
-    lib.bulk_copy.restype = i32
-    for name in ("flash_fwd_bf16", "flash_fwd_pipelined", "flash_fwd_bf16exp",
-                 "flash_softmax_stub", "flash_fwd_paired", "flash_fwd_bf16s",
-                 "flash_fwd_paired16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
-        fn.restype = i32
-    lib.flash_qk_only.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]  # no V
-    lib.flash_qk_only.restype = i32
-    lib.cuda_error_string.argtypes = [i32]
-    lib.cuda_error_string.restype = ctypes.c_char_p
+    lib = bind(ctypes.CDLL(str(so)))
     build_info.update(
         key=key, path=str(so), built=built,
         seconds=time.perf_counter() - t0,

@@ -25,27 +25,68 @@
 // Bound on an H100: operations. At the probe's shape (8 x 8192 x 128,
 // causal) the two products are ~1.4e11 FLOPs against 67 MB of inputs and
 // output, some 2000 FLOPs a byte, far above the ~295 at which bf16 tensor
-// cores rather than memory set the pace. The instruments are bound the
+// cores rather than memory set the pace: 0.139 ms at 989 TFLOPS. The instruments are bound the
 // same way: K6a does both products over the causal tiling (1.4e11 FLOPs),
 // K6b half of them.
 //
-// Design: one block per (q-block, head) with block_q/16 warps; each warp
-// owns 16 query rows. A warp keeps its Q rows in registers as mma.sync A
-// fragments for the whole kernel, and its f32 accumulator (16 x 128), m
-// and l in registers. K and V stream through shared memory in 64-key
-// sub-tiles (rows padded to 136 bf16 so the fragment reads hit 32 distinct
-// banks). Both products run on tensor cores as mma.sync m16n8k16 bf16 with
-// f32 accumulation; the S accumulator's layout is the PV A-fragment's
-// layout, so p goes from registers to the second product without shared
-// memory. The logical tiling is the caller's (block_q, block_k), as on the
-// TPU: a causal q-block processes k-blocks [0, diag_stop(i)), the first
-// n_full = i*block_q/block_k without a mask and the rest masked, so the
-// FLOPs performed are exactly causal_flops(seq, H, D, block_q, block_k).
-// Heavier causal q-blocks are scheduled first. The online-softmax update
-// runs per 64-key sub-tile; the result is the same function up to the
-// order of f32 sums and where p is rounded to bf16.
+// K3's design (flash_fwd_wgmma_kernel), for Hopper. What bound the first
+// K3 (the synchronous design below) was its staging and its
+// products: every 64-key sub-tile was staged by 16-byte loads between two
+// block barriers with no product running, at one 256-thread block per SM,
+// and both products ran on mma.sync, which cannot reach the tensor cores'
+// rate. Now K, V and Q arrive by TMA and both products run on wgmma:
+// - Host: a tensor map per Q, K, V over (heads*seq, 128) bf16 with 64 x 64
+//   boxes (one box row is 128 B) and 128-byte swizzle, D = 128 taking two
+//   boxes; cuTensorMapEncodeTiled is reached through the runtime
+//   (cudaGetDriverEntryPoint*), so the library needs no -lcuda. The maps
+//   are encoded on every call and passed as __grid_constant__ parameters.
+// - One block per (q-block, head) with one consumer warpgroup per 64 query
+//   rows (block_q 128: two; 64: one). Thread 0 loads the block's Q once
+//   and keeps K/V in a ring of STAGES = 2 stages of 64 keys, each behind a
+//   "full" mbarrier (expect_tx); a stage is refilled with sub-tile
+//   kt-1+STAGES once every warp has arrived on its "empty" mbarrier, after
+//   sub-tile kt-1's PV, so sub-tile kt+1 loads while kt is computed. Two
+//   stages, not three: at 1 KB + 2 x 32 KB + 32 KB = 97 KB of shared memory
+//   and 126 registers two 256-thread blocks share an SM, so one block's
+//   warpgroups run their products while the other's run the softmax; a
+//   third stage leaves room for one block and measured slower on the H100.
+// - S = Q.K^T: eight wgmma m64n64k16 over D, Q and the K stage both
+//   K-major from shared memory by descriptor (SBO 1024 B, a k16 step 32 B
+//   inside the swizzled row, the fifth step in the second box). PV: four
+//   wgmma m64n128k16 over the sub-tile's keys, p from registers as the A
+//   fragment, the V stage MN-major (the transpose bit; LBO 8 KB to the
+//   second box of D, SBO 1024 B to the next 8 keys).
+// - A warp's slice of a wgmma m64nN f32 accumulator is the mma.sync m16n8
+//   C layout repeated over N/8, so the online softmax is K3's own
+//   (online_softmax<false, MASKED>, log2 domain, the masked-row guard) and
+//   the S-to-A-fragment reuse carries over. No generic-proxy write reaches
+//   the shared memory that TMA and wgmma use, so no proxy fence is needed.
+// - The logical tiling is the caller's (block_q, block_k) as on the TPU: a
+//   causal q-block processes k-blocks [0, diag_stop(i)), the first n_full =
+//   i*block_q/block_k without a mask and the rest masked, so the FLOPs
+//   performed are exactly causal_flops(seq, H, D, block_q, block_k);
+//   heavier causal q-blocks are scheduled first. The ring runs over the
+//   sub-tiles of both ranges with one counter, so its stage and parity
+//   carry over from the unmasked loop into the masked tail.
+// Not done yet: warp specialisation (a producer warp, setmaxnreg), the next
+// S product overlapped with the current softmax (K4's structure, for K4's
+// redesign), persistent blocks, clusters and multicast. The softmax still
+// runs between the two products with the tensor cores idle.
 //
-// K3, K5, K6a and K6b are one kernel template (flash_fwd_kernel) with a
+// The synchronous design (K4-K7c, and K3 before): one block per (q-block,
+// head) with block_q/16 warps; each warp owns 16 query rows. A warp keeps
+// its Q rows in registers as mma.sync A fragments for the whole kernel,
+// and its f32 accumulator (16 x 128), m and l in registers. K and V stream
+// through shared memory in 64-key sub-tiles (rows padded to 136 bf16 so
+// the fragment reads hit 32 distinct banks). Both products run on tensor
+// cores as mma.sync m16n8k16 bf16 with f32 accumulation; the S
+// accumulator's layout is the PV A-fragment's layout, so p goes from
+// registers to the second product without shared memory. The tiling,
+// n_full, diag_stop and the order of q-blocks are K3's. The online-softmax
+// update runs per 64-key sub-tile; the result is the same function up to
+// the order of f32 sums and where p is rounded to bf16.
+//
+// K5, K6a, K6b and K7b are one kernel template (flash_fwd_kernel) with a
 // different step per sub-tile. K3 works in the log2 domain (s*scale*log2e,
 // exp2f); K5 rounds s*scale - m in natural-log units, as the reference
 // does, and only then takes exp as exp2f(x*log2e). The stubs run every
@@ -56,10 +97,12 @@
 // K4 is a kernel of its own because its loop differs: K_{j+1} and V_j are
 // resident together, so it keeps two stages of K and V in dynamic shared
 // memory (4 x 64 x 136 x 2 B = 69,632 B, above the 48 KB of static shared
-// memory) and two S fragment sets; its loads stay K3's synchronous 16-byte
-// stores, so full - pipelined isolates the reordering. Per element its
-// arithmetic is K3's, through the same device functions, so its output is
-// K3's bit for bit.
+// memory) and two S fragment sets; its loads stay the synchronous 16-byte
+// stores, so it isolates the reordering against the synchronous K3.
+// Per element its arithmetic is K3's, through the same device
+// functions, and its output has matched the Hopper K3's bit for bit at
+// every shape checked on the H100 (the two take the same k16 steps in the
+// same order).
 //
 // K7, the structural-variant instrument (tpu_operator_torch/workloads/
 // fa_experiment.py), replaces the three modes of build() in
@@ -86,13 +129,15 @@
 // iterations (K4 carries one and keeps a barrier pair per sub-tile). An
 // odd leftover sub-tile runs alone, then the masked tail as K3 runs it:
 // the reference's body2/body1/tail. Per element the arithmetic is K3's
-// (K7b's), so K7a equals K3 and K7c equals K7b bit for bit.
-// Not yet done here: cp.async/TMA double buffering and wgmma.
+// (K7b's), so K7c equals K7b bit for bit and K7a equals K3.
 
+#include <cuda.h>  // CUtensorMap and its enums, for the tensor maps
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -192,16 +237,17 @@ __device__ __forceinline__ void pv(const float (&p)[KT / 8][4],
   }
 }
 
-// One online-softmax + PV step of one warp against one 64-key sub-tile
-// whose scores are in s. BF16EXP false (K3, K4): scale is scale*log2e and
-// m lives in the log2 domain. BF16EXP true (K5): scale is 1/sqrt(D), m is
-// in natural-log units, p = bf16(exp(bf16(s - m_new))) and l sums that p.
+// One online-softmax step of one warp's 16 rows against one 64-key sub-tile
+// whose scores are in s: s becomes p, m and l move on, acc is rescaled.
+// BF16EXP false (K3, K4, K7a): scale is scale*log2e and m lives in the
+// log2 domain. BF16EXP true (K5): scale is 1/sqrt(D), m is in natural-log
+// units, p = bf16(exp(bf16(s - m_new))) and l sums that p. The fragment
+// layout is mma.sync's m16n8 C layout, which is also a warp's slice of a
+// wgmma m64nN accumulator, so K3's Hopper kernel runs this step as it is.
 template <bool BF16EXP, bool MASKED>
-__device__ __forceinline__ void softmax_pv(float (&s)[KT / 8][4],
-                                           const __nv_bfloat16* __restrict__ Vs,
-                                           float (&acc)[D / 8][4], float (&m)[2],
-                                           float (&l)[2], float scale, int qrow, int k0,
-                                           int lane) {
+__device__ __forceinline__ void online_softmax(float (&s)[KT / 8][4], float (&acc)[D / 8][4],
+                                               float (&m)[2], float (&l)[2], float scale,
+                                               int qrow, int k0, int lane) {
   const int t = lane & 3;
   float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -251,6 +297,16 @@ __device__ __forceinline__ void softmax_pv(float (&s)[KT / 8][4],
     acc[nt][2] *= alpha[1];
     acc[nt][3] *= alpha[1];
   }
+}
+
+// online_softmax, then acc += bf16(p) . V on mma.sync (K4, K5, K7a).
+template <bool BF16EXP, bool MASKED>
+__device__ __forceinline__ void softmax_pv(float (&s)[KT / 8][4],
+                                           const __nv_bfloat16* __restrict__ Vs,
+                                           float (&acc)[D / 8][4], float (&m)[2],
+                                           float (&l)[2], float scale, int qrow, int k0,
+                                           int lane) {
+  online_softmax<BF16EXP, MASKED>(s, acc, m, l, scale, qrow, k0, lane);
   pv(s, Vs, acc, lane);
 }
 
@@ -405,7 +461,7 @@ __device__ __forceinline__ void finish_l(float (&l)[2]) {
   }
 }
 
-// K3, K5, K6a, K6b, K7b. scale: scale*log2e for kFull, 1/sqrt(D) otherwise.
+// K5, K6a, K6b, K7b; scale is 1/sqrt(D).
 template <Step STEP>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -605,6 +661,264 @@ flash_fwd_paired_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   store_out(o, qrow, acc, l, lane);
 }
 
+// ---------------------------------------------------------------------------
+// K3 on Hopper: a TMA ring of K/V sub-tiles and both products on wgmma.
+
+constexpr int STAGES = 2;                    // K/V stages in the ring
+constexpr int BOX_COLS = 64;                 // a TMA box: 64 bf16 = one 128-byte swizzled row
+constexpr int HALF_BYTES = KT * BOX_COLS * 2;  // one 64 x 64 box: 8 KB
+constexpr int TILE_BYTES = 2 * HALF_BYTES;   // 64 rows x D: two boxes, 16 KB
+constexpr int ATOM_BYTES = 1024;             // 8 rows x 128 B: the 128-byte swizzle atom
+constexpr int MAX_WG = 2;                    // consumer warpgroups: block_q 128
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// One 64-row x 64-column box at (col, row) of a 2-D tensor map into shared
+// memory, 128-byte swizzled; completion lands on bar.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int col, int row,
+                                        uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 (128B
+// swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across a wgmma wait: each register passes through an empty asm.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
+}
+
+#define F4(a, i) "+f"(a[i][0]), "+f"(a[i][1]), "+f"(a[i][2]), "+f"(a[i][3])
+
+// s = Q.K^T over one k16 step, or s += it when accumulate: m64n64k16 for
+// one warpgroup, Q (A) and the K stage (B) both K-major in shared memory.
+__device__ __forceinline__ void wgmma_qk(float (&s)[KT / 8][4], uint64_t qd, uint64_t kd,
+                                         int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F4(s, 0), F4(s, 1), F4(s, 2), F4(s, 3), F4(s, 4), F4(s, 5), F4(s, 6), F4(s, 7)
+      : "l"(qd), "l"(kd), "r"(accumulate));
+}
+
+// acc += P.V over one k16 step (16 keys): m64n128k16 for one warpgroup, P
+// from registers (a warp's A fragment, as mma.sync takes it), the V stage
+// from shared memory. V rows are keys with D contiguous, so B is MN-major:
+// the transpose bit.
+__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 8][4], const uint32_t (&pa)[4],
+                                         uint64_t vd) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : F4(acc, 0), F4(acc, 1), F4(acc, 2), F4(acc, 3), F4(acc, 4), F4(acc, 5), F4(acc, 6),
+        F4(acc, 7), F4(acc, 8), F4(acc, 9), F4(acc, 10), F4(acc, 11), F4(acc, 12),
+        F4(acc, 13), F4(acc, 14), F4(acc, 15)
+      : "r"(pa[0]), "r"(pa[1]), "r"(pa[2]), "r"(pa[3]), "l"(vd), "r"(1));
+}
+
+#undef F4
+
+// S = Q.K^T of one warpgroup's 64 rows against one staged 64-key sub-tile:
+// eight k16 steps over D. A step moves 32 B inside a 128-byte swizzled row,
+// and the fifth crosses into the second 64-column box.
+__device__ __forceinline__ void qk_wgmma(float (&s)[KT / 8][4], uint32_t q_tile, uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * HALF_BYTES + (kk % 4) * 32;
+    wgmma_qk(s, smem_desc(q_tile + off, 16, ATOM_BYTES), smem_desc(k_tile + off, 16, ATOM_BYTES),
+             kk > 0);
+  }
+}
+
+// p's bf16 A fragments for the four k16 steps of a sub-tile, in the S
+// fragment's layout (as pv packs them), all made before the products start.
+__device__ __forceinline__ void pack_p(const float (&p)[KT / 8][4], uint32_t (&pa)[KT / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) {
+    pa[kk][0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    pa[kk][1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    pa[kk][2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+  }
+}
+
+// acc += bf16(p).V for one sub-tile: four k16 steps of 16 keys, each 16
+// rows (2048 B) further into the V stage. LBO is the step to the second
+// 64-column box of D, SBO the step to the next 8 keys.
+__device__ __forceinline__ void pv_wgmma(const uint32_t (&pa)[KT / 16][4], uint32_t v_tile,
+                                         float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk)
+    wgmma_pv(acc, pa[kk], smem_desc(v_tile + kk * 16 * 128, HALF_BYTES, ATOM_BYTES));
+}
+
+// K3. Dynamic shared memory, 1024-aligned: STAGES K tiles, STAGES V tiles,
+// then Q (one 16 KB tile per warpgroup). Thread 0 drives the ring: it loads
+// Q and the first STAGES sub-tiles, and refills the stage of sub-tile kt-1
+// with kt-1+STAGES once every warp has arrived on that stage's "empty"
+// barrier, which a warp does once sub-tile kt's S has landed (its PV of
+// kt-1 was waited for at the end of the previous iteration).
+__global__ void __launch_bounds__(MAX_WG * 128, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                       int seq, int block_q, int block_k, int causal, float scale_log2) {
+  extern __shared__ uint4 smem_raw[];  // aligned to 1024 below
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], qbar;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + ATOM_BYTES - 1) & ~(uint32_t)(ATOM_BYTES - 1);
+  const uint32_t k_tiles = base, v_tiles = base + STAGES * TILE_BYTES;
+  const uint32_t q_tiles = base + 2 * STAGES * TILE_BYTES;
+
+  const int i = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int row0 = blockIdx.y * seq;          // the head's first row in the (H*S, D) maps
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qrow = i * block_q + warp * 16 + (lane >> 2);
+
+  // diag_stop(i) and n_full, in k-blocks, as the TPU kernel computes them
+  const int hi = causal ? ((i + 1) * block_q + block_k - 1) / block_k : seq / block_k;
+  const int n_full = causal ? (i * block_q) / block_k : hi;
+  const int sub = block_k / KT;
+  const int n_tiles = hi * sub, n_unmasked = n_full * sub;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), blockDim.x >> 5);
+    }
+    mbar_init(smem_u32(&qbar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int kt) {  // thread 0 only
+    const int s = kt % STAGES;
+    const uint32_t bar = smem_u32(&full[s]);
+    mbar_expect_tx(bar, 2 * TILE_BYTES);
+    for (int h = 0; h < 2; ++h) {
+      tma_box(k_tiles + s * TILE_BYTES + h * HALF_BYTES, &kmap, h * BOX_COLS, row0 + kt * KT, bar);
+      tma_box(v_tiles + s * TILE_BYTES + h * HALF_BYTES, &vmap, h * BOX_COLS, row0 + kt * KT, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    const uint32_t bar = smem_u32(&qbar);
+    mbar_expect_tx(bar, block_q * D * 2);
+    for (int r = 0; r < block_q / 64; ++r)
+      for (int h = 0; h < 2; ++h)
+        tma_box(q_tiles + r * TILE_BYTES + h * HALF_BYTES, &qmap, h * BOX_COLS,
+                row0 + i * block_q + r * 64, bar);
+    for (int kt = 0; kt < STAGES && kt < n_tiles; ++kt) load_kv(kt);
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float s[KT / 8][4];
+  const uint32_t q_tile = q_tiles + wg * TILE_BYTES;
+  mbar_wait(smem_u32(&qbar), 0);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt % STAGES;
+    mbar_wait(smem_u32(&full[st]), (kt / STAGES) & 1);
+    wgmma_fence();
+    qk_wgmma(s, q_tile, k_tiles + st * TILE_BYTES);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    if (kt > 0) {
+      const int prev = (kt - 1) % STAGES;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&empty[prev]));
+      if (threadIdx.x == 0 && kt - 1 + STAGES < n_tiles) {
+        mbar_wait(smem_u32(&empty[prev]), ((kt - 1) / STAGES) & 1);
+        load_kv(kt - 1 + STAGES);
+      }
+      __syncwarp();
+    }
+    if (kt < n_unmasked)  // below the diagonal: no mask
+      online_softmax<false, false>(s, acc, m, l, scale_log2, qrow, kt * KT, lane);
+    else  // the diagonal tail
+      online_softmax<false, true>(s, acc, m, l, scale_log2, qrow, kt * KT, lane);
+    uint32_t pa[KT / 16][4];
+    pack_p(s, pa);
+    // the rescaled acc and p's fragments are final before the products
+    // start: a register an instruction defines inside the wgmma chain
+    // would make ptxas serialize it
+    fence_regs(acc);
+    wgmma_fence();
+    pv_wgmma(pa, v_tiles + st * TILE_BYTES, acc);
+    wgmma_commit();
+    // PV is waited for here and not behind the next S: ptxas serializes a
+    // wgmma chain whose accumulators another instruction defines while it
+    // is in flight, which the next S's would be
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+  finish_l(l);
+  store_out(o + (size_t)row0 * D, qrow, acc, l, lane);
+}
+
 bool bad_shape(int heads, int seq, int block_q, int block_k) {
   return heads <= 0 || seq <= 0 || block_q <= 0 || block_q % 16 ||
          block_q > MAX_WARPS * 16 || block_k <= 0 || block_k % KT || seq % block_q ||
@@ -623,7 +937,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int heads, int 
   flash_fwd_kernel<STEP><<<grid, (block_q / 16) * 32, 0, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq, block_q,
-      block_k, causal, STEP == Step::kFull ? SCALE_LOG2 : SCALE);
+      block_k, causal, SCALE);
   return (int)cudaGetLastError();
 }
 
@@ -647,12 +961,91 @@ int launch_two_stage(FlashKernel kernel, const void* q, const void* k, const voi
   return (int)cudaGetLastError();
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the runtime, so the
+// library links without -lcuda; null where it cannot be found.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map over a contiguous (rows, D) bf16 array: 64 x 64 boxes (one
+// box row is 128 B), 128-byte swizzle, as the wgmma descriptors read it.
+bool tile_map(CUtensorMap* map, const void* ptr, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t box[2] = {BOX_COLS, KT};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int WGMMA_SMEM_MAX = ATOM_BYTES + 2 * STAGES * TILE_BYTES + MAX_WG * TILE_BYTES;
+
+constexpr int MAX_DEVICES = 64;
+
+// K3's dynamic shared memory allowed on the current device, once per
+// device (a function attribute belongs to the device's context).
+cudaError_t allow_wgmma_smem() {
+  static std::atomic<bool> done[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev].load()) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WGMMA_SMEM_MAX);
+  if (err == cudaSuccess) done[dev].store(true);
+  return err;
+}
+
+// K3: block_q 64 or 128 (whole warpgroups), block_k a multiple of 64.
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int heads, int seq,
+                 int block_q, int block_k, int causal, void* stream) {
+  if (bad_shape(heads, seq, block_q, block_k) || (block_q != 64 && block_q != 128))
+    return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const int rows = heads * seq;
+  if (!tile_map(&maps[0], q, rows) || !tile_map(&maps[1], k, rows) ||
+      !tile_map(&maps[2], v, rows))
+    return cudaErrorInvalidValue;
+  const cudaError_t attr = allow_wgmma_smem();
+  if (attr != cudaSuccess) return (int)attr;
+  const int smem = ATOM_BYTES + 2 * STAGES * TILE_BYTES + (block_q / 64) * TILE_BYTES;
+  dim3 grid(seq / block_q, heads);
+  flash_fwd_wgmma_kernel<<<grid, block_q * 2, smem, (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), seq, block_q, block_k, causal,
+      SCALE_LOG2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                               int heads, int seq, int block_q, int block_k, int causal,
                               void* stream) {
-  return launch<Step::kFull>(q, k, v, o, heads, seq, block_q, block_k, causal, stream);
+  return launch_wgmma(q, k, v, o, heads, seq, block_q, block_k, causal, stream);
 }
 
 extern "C" int flash_fwd_bf16exp(const void* q, const void* k, const void* v, void* o,

@@ -10,7 +10,8 @@ of ``fa_common.setup``. The modes, each a kernel in ``csrc/flash.cu``:
 
 * ``paired`` (K7a): two 64-key sub-tiles staged behind one pair of
   barriers, both score products issued before either softmax; K3's
-  function, bit for bit.
+  function, bit for bit. K3 is the Hopper kernel (TMA ring, ``wgmma``),
+  so the ratio sets the synchronous structure against it.
 * ``bf16s`` (K7b): the scores rounded to bf16 once and the whole softmax
   run at half width (the reference's ``scores_b``/``soft_b``).
 * ``paired16`` (K7c): both; K7b's function, bit for bit.

@@ -12,11 +12,16 @@ All five variants of the reference are ported, each to a kernel in
 with the next scores issued before the current softmax), ``bf16exp`` (K5,
 ``exp`` of a bf16 difference), and the attribution instruments
 ``softmax_stub`` and ``qk_only`` (K6a, K6b), whose numerics are wrong by
-design. Each has a plain version below in torch ops that follows the
-reference per ``block_k`` block. ``flash_attention`` takes the plain
-version only for CPU tensors; for CUDA tensors it launches the variant's
-kernel or raises. ``run_flashattn_breakdown`` times the instruments and
-attributes K3's time to the matmuls, the softmax, PV and pipelining.
+design. K3 is built for Hopper: K/V stream through a TMA ring and both
+products run on ``wgmma``, one warpgroup per 64 query rows, so it takes
+``block_q`` 64 or 128. K4-K6b keep the synchronous ``mma.sync`` structure
+(``block_q`` a multiple of 16 up to 128). Each has a plain version below in
+torch ops that follows the reference per ``block_k`` block.
+``flash_attention`` takes the plain version only for CPU tensors; for CUDA
+tensors it launches the variant's kernel or raises. ``run_flashattn_breakdown``
+times the instruments and attributes K3's time to the matmuls, the softmax,
+PV and pipelining; since K3 and the instruments no longer share a
+structure, that split sets the Hopper K3 against the synchronous one.
 """
 
 from __future__ import annotations
@@ -34,14 +39,16 @@ from tpu_operator_torch.workloads.topology import PEAK_BF16_TFLOPS
 
 LANES = 128  # head_dim the kernel takes
 
-# The port's default tile caps. K3 runs block_q/16 warps of 16 query rows
-# (at most 8 warps, so block_q <= 128) and streams keys in 64-row sub-tiles
-# (block_k a multiple of 64); 128/128 keeps the masked diagonal tail to one
-# 128-key block per q-block. The reference's 256/1024 are TPU VMEM tiles.
+# The port's default tile caps. K3 runs one warpgroup (wgmma's 64 rows) per
+# 64 query rows, at most two, so block_q is 64 or 128, and streams keys in
+# 64-row sub-tiles (block_k a multiple of 64); 128/128 keeps the masked
+# diagonal tail to one 128-key block per q-block and two warpgroups per
+# block. The reference's 256/1024 are TPU VMEM tiles.
 BLOCK_Q_CAP = 128
 BLOCK_K_CAP = 128
 KERNEL_KEY_TILE = 64
-KERNEL_MAX_BLOCK_Q = 128
+KERNEL_MAX_BLOCK_Q = 128  # K4-K7c: block_q/16 warps of 16 rows, at most 8
+WGMMA_BLOCK_Q = (64, 128)  # K3: whole warpgroups
 
 REFERENCE_VARIANTS = ("full", "pipelined", "softmax_stub", "qk_only", "bf16exp")
 PORTED_VARIANTS = REFERENCE_VARIANTS
@@ -240,6 +247,23 @@ def flash_attention(
     return _launch(name, entry, inputs, block_q, block_k, causal)
 
 
+def check_kernel_tiling(name: str, block_q: int, block_k: int) -> None:
+    """Raise ``ValueError`` unless the kernel counted as ``name`` takes
+    ``(block_q, block_k)`` on the card: K3 (``flash_fwd``) ``block_q`` 64 or
+    128, the others a multiple of 16 up to 128; every kernel ``block_k`` a
+    multiple of 64. ``_launch`` calls it before any CUDA call."""
+    if name == "flash_fwd":
+        q_ok, takes = block_q in WGMMA_BLOCK_Q, "block_q 64 or 128"
+    else:
+        q_ok = block_q > 0 and block_q % 16 == 0 and block_q <= KERNEL_MAX_BLOCK_Q
+        takes = f"block_q a multiple of 16 up to {KERNEL_MAX_BLOCK_Q}"
+    if not q_ok or block_k <= 0 or block_k % KERNEL_KEY_TILE:
+        raise ValueError(
+            f"{name} takes {takes} and block_k a multiple of {KERNEL_KEY_TILE}, "
+            f"got {block_q}/{block_k}"
+        )
+
+
 def _launch(name: str, entry: str, inputs, block_q: int, block_k: int, causal: bool):
     """Launch the flash kernel ``entry`` of ``csrc/flash.cu`` on CUDA
     inputs ``(q, k[, v])`` already checked by ``_check_qkv``, count one
@@ -251,11 +275,7 @@ def _launch(name: str, entry: str, inputs, block_q: int, block_k: int, causal: b
     heads, seq, head_dim = q.shape
     if head_dim != LANES:
         raise ValueError(f"the kernel takes head_dim {LANES}, got {head_dim}")
-    if block_q % 16 or block_q > KERNEL_MAX_BLOCK_Q or block_k % KERNEL_KEY_TILE:
-        raise ValueError(
-            f"the kernel takes block_q a multiple of 16 up to {KERNEL_MAX_BLOCK_Q} "
-            f"and block_k a multiple of {KERNEL_KEY_TILE}, got {block_q}/{block_k}"
-        )
+    check_kernel_tiling(name, block_q, block_k)
     lib = _build.library()
     out = torch.empty_like(q)
     err = getattr(lib, entry)(
