@@ -8,19 +8,23 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
 
 1. print the card (``nvidia-smi`` name and power limit), torch and nvcc
    versions, build the kernels from ``tpu_operator_torch/csrc`` (ptxas's
-   registers, spills and ``wgmma`` warnings printed), and count ``HGMMA``
-   and ``UTMALDG`` in K3's SASS (``cuobjdump``; none of either fails);
+   registers and spills printed; a ``wgmma`` serialization note, C7515 or
+   C7519, fails), and count ``HGMMA``, ``UTMALDG`` and ``HMMA`` in the SASS
+   of each of the three instances of the Hopper kernel, K3, K5 and K7c
+   (``cuobjdump``; a missing instance, no HGMMA or UTMALDG, or any HMMA
+   fails);
 2. hold each kernel against its plain PyTorch version on the card (the
    copies bit-exact; flash attention K3 and the variants K4 ``pipelined``
    and K5 ``bf16exp`` within 1e-2 of their plain versions and within 2e-2
-   of the f32 oracle, K3 also at the edges of its Hopper kernel
+   of the f32 oracle, K3 and K5 also at the edges of the Hopper kernel
    (``K3_EDGE_SHAPES``), K4 also against K3 (whether bit for bit is
    logged, within 1e-2 required); the instruments K6a ``softmax_stub``
    within 1e-2 and K6b ``qk_only`` within one bf16 ulp of theirs), check
-   that K3 refuses ``block_q`` 32 with ``ValueError`` and launches
-   nothing and that its host cost per call stays within
-   ``K3_HOST_LIMIT_US`` of K5's (its tensor maps), and time kernel, plain
-   version and one library call at the main path's shapes;
+   that K3, K5 and K7c refuse ``block_q`` 32 with ``ValueError`` and
+   launch nothing and that the host cost per call of each stays within
+   ``K3_HOST_LIMIT_US`` of K4's (their tensor maps; K4 encodes none), and
+   time kernel, plain version and one library call at the main path's
+   shapes;
 3. run the main path in-process at its full operating points (matmul 8192,
    membw 2 GiB, flash attention 8192 x 8 heads) with the launch counts set
    to 0 just before and read just after;
@@ -31,7 +35,8 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    K7c ``paired16`` against their plain versions (within 1e-2, and nearer
    in mean-abs to their own softmax's plain version than to the other's;
    K7b and K7c never equal to K3) and the f32 oracle (2e-2) at the
-   variants' causal shapes, at 1 x 512 with 64/64 blocks and at 8 x 8192,
+   variants' causal shapes, at 1 x 512 with 64/64 blocks, at 2 x 1024
+   with 128/512 blocks and at 8 x 8192,
    K7a against K3 and K7c against K7b (whether bit for bit is logged,
    within 1e-2 required); then, with the launch counts set to 0 just
    before and read just after, run ``run_experiment`` with all three
@@ -51,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -79,10 +85,14 @@ K3_EDGE_SHAPES = [
     (2, 1024, 128, 512, True),
     (2, 1024, 128, 128, False),
 ]
-K3_KERNEL = "flash_fwd_wgmma_kernel"  # K3's __global__ in csrc/flash.cu
-# host microseconds a K3 call may spend beyond K5's (its tensor maps): 5%
-# of K3's ~0.39 ms at the main path's shape, where the host would start to
-# set the pace of a chain of launches
+WGMMA_KERNEL = "flash_fwd_wgmma_kernel"  # the Hopper kernel's __global__ in csrc/flash.cu
+# its instances by (Step, PAIRED) as the mangled name spells them:
+# flash_fwd_wgmma_kernel<Step, bool PAIRED, int STAGES>, Step::kFull = 0,
+# kBf16Exp = 1, kBf16S = 4
+WGMMA_INSTANCES = {("0", "0"): "K3", ("1", "0"): "K5", ("4", "1"): "K7c"}
+# host microseconds a call of the Hopper kernel may spend beyond K4's
+# (its tensor maps): 5% of K3's ~0.39 ms at the main path's shape, where
+# the host would start to set the pace of a chain of launches
 K3_HOST_LIMIT_US = 20.0
 # the variants' shapes: the reference's seq-1024 test at the port's blocks
 VARIANT_TEST_SHAPES = FLASH_TEST_SHAPES + [
@@ -106,8 +116,12 @@ MODES = [
     ("paired16", "flash_fwd_paired16", 69),
 ]
 # the variants' causal shapes, and 64/64, where an odd number of unmasked
-# sub-tiles leaves K7a and K7c one to run alone
-STRUCTURAL_TEST_SHAPES = [s for s in VARIANT_TEST_SHAPES if s[4]] + [(1, 512, 64, 64, True)]
+# sub-tiles leaves K7a and K7c one to run alone, and 128/512, where K7c's
+# ring wraps inside a k-block
+STRUCTURAL_TEST_SHAPES = [s for s in VARIANT_TEST_SHAPES if s[4]] + [
+    (1, 512, 64, 64, True),
+    (2, 1024, 128, 512, True),
+]
 BF16_ULP = 2.0**-7  # bf16 keeps 8 significant bits: one ulp is at most 2^-7 of |x|
 
 
@@ -148,12 +162,20 @@ def phase_setup():
     info = _build.build_info
     log(f"kernels built={info['built']} in {info['seconds']:.1f} s: {info['path']}")
     ptxas = os.path.join(os.path.dirname(info["path"]), "ptxas.log")
+    serialized = []
     if os.path.exists(ptxas):
         with open(ptxas) as f:
             for line in f:
-                if any(w in line for w in ("registers", "spill", "Compiling", "wgmma")):
+                if any(w in line for w in ("registers", "spill", "Compiling", "wgmma", "C75")):
                     log("  ptxas " + line.strip())
-    k3_sass()
+                # C7515 serializes a wgmma chain; C7519 injects a
+                # warpgroup.arrive where a register in use by one is touched
+                if "(C7515)" in line or "(C7519)" in line or (
+                        "wgmma" in line and "serializ" in line):
+                    serialized.append(line.strip())
+    if serialized:
+        raise RuntimeError(f"ptxas serialized wgmma: {serialized}")
+    wgmma_sass()
 
 
 def peaks():
@@ -239,8 +261,8 @@ def phase_kernels() -> list:
         worst = max(worst, err_plain)
         del got, plain, ref
     torch.cuda.empty_cache()
-    k3_refuses_block_q_32(fa, q, k, v)
-    k3_host_cost(fa, qkv)
+    wgmma_refuse_block_q_32(fa, q, k, v)
+    wgmma_host_cost(fa, qkv)
     useful = 4.0 * heads * fa.LANES * seq * (seq + 1) / 2.0
     io_bytes = 4.0 * heads * seq * fa.LANES * 2
     bound_flops, bound_io = useful / peak_flops, io_bytes / peak_bytes
@@ -266,52 +288,73 @@ def phase_kernels() -> list:
     return kernels
 
 
-def k3_refuses_block_q_32(fa, q, k, v) -> None:
-    """K3 runs whole warpgroups: block_q 32 must raise ValueError on the
-    card before any launch."""
+def wgmma_callers(fa):
+    """(label, launch counter, fn(q, k, v, block_q, block_k)) of the three
+    kernels that run on the Hopper kernel, through their wrappers."""
+    from tpu_operator_torch.workloads import fa_experiment as fx
+
+    return [
+        ("K3", "flash_fwd", lambda q, k, v, bq, bk: fa.flash_attention(q, k, v, bq, bk, True)),
+        ("K5", "flash_fwd_bf16exp",
+         lambda q, k, v, bq, bk: fa.flash_attention(q, k, v, bq, bk, True, "bf16exp")),
+        ("K7c", "flash_fwd_paired16",
+         lambda q, k, v, bq, bk: fx.experiment_flash(q, k, v, bq, bk, "paired16")),
+    ]
+
+
+def wgmma_refuse_block_q_32(fa, q, k, v) -> None:
+    """The Hopper kernel runs whole warpgroups: K3, K5 and K7c must each
+    raise ValueError at block_q 32 on the card before any launch."""
     from tpu_operator_torch import _build
 
-    before = _build.launches["flash_fwd"]
-    try:
-        fa.flash_attention(q, k, v, 32, 128, True)
-    except ValueError as e:
-        log(f"flash_fwd at 32/128 refused: {e}")
-    else:
-        raise RuntimeError("flash_fwd took block_q 32")
-    if _build.launches["flash_fwd"] != before:
-        raise RuntimeError("flash_fwd launched at block_q 32")
+    for label, name, run in wgmma_callers(fa):
+        before = _build.launches[name]
+        try:
+            run(q, k, v, 32, 128)
+        except ValueError as e:
+            log(f"{label} at 32/128 refused: {e}")
+        else:
+            raise RuntimeError(f"{label} took block_q 32")
+        if _build.launches[name] != before:
+            raise RuntimeError(f"{label} launched at block_q 32")
 
 
-def k3_host_cost(fa, qkv) -> None:
-    """Host microseconds a call of K3 (which encodes three tensor maps per
-    call) and of K5 (no tensor maps) take at a shape whose kernels are
-    shorter than their enqueue, so the host sets the pace; the least of
-    three readings each. Fails when the maps cost more than
+def wgmma_host_cost(fa, qkv) -> None:
+    """Host microseconds a call of K3, K5 and K7c (each encodes three
+    tensor maps per call) and of K4 (no tensor maps) take at a shape whose
+    kernels are shorter than their enqueue, so the host sets the pace; the
+    least of three readings each. Fails when the maps cost more than
     K3_HOST_LIMIT_US a call: then they must be cached."""
     q, k, v = qkv(1, 128)
 
-    def host_us(variant):
-        run = lambda: fa.flash_attention(q, k, v, 64, 64, True, variant)  # noqa: E731
+    def host_us(run):
         for _ in range(10):
-            run()
+            run(q, k, v, 64, 64)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(100):
-            run()
+            run(q, k, v, 64, 64)
         us = (time.perf_counter() - t0) / 100 * 1e6
         torch.cuda.synchronize()
         return us
 
-    k3, k5 = min(host_us("full") for _ in range(3)), min(host_us("bf16exp") for _ in range(3))
-    log(f"host us per call at 1 x 128, 64/64: K3 {k3:.2f}, K5 {k5:.2f}")
-    if k3 - k5 > K3_HOST_LIMIT_US:
-        raise RuntimeError(f"K3's tensor maps cost {k3 - k5:.1f} us a call, "
-                           f"above {K3_HOST_LIMIT_US} us")
+    def k4(q, k, v, bq, bk):
+        return fa.flash_attention(q, k, v, bq, bk, True, "pipelined")
+
+    base = min(host_us(k4) for _ in range(3))
+    costs = {label: min(host_us(run) for _ in range(3)) for label, _, run in wgmma_callers(fa)}
+    log(f"host us per call at 1 x 128, 64/64: K4 {base:.2f}, "
+        + ", ".join(f"{label} {us:.2f}" for label, us in costs.items()))
+    for label, us in costs.items():
+        if us - base > K3_HOST_LIMIT_US:
+            raise RuntimeError(f"{label}'s tensor maps cost {us - base:.1f} us a call, "
+                               f"above {K3_HOST_LIMIT_US} us")
 
 
-def k3_sass() -> None:
-    """Count HGMMA (wgmma) and UTMALDG (TMA loads) in K3's kernel in the
-    built library's SASS; fail if K3 has no HGMMA or no UTMALDG."""
+def wgmma_sass() -> None:
+    """Count HGMMA (wgmma), UTMALDG (TMA loads) and HMMA (mma.sync) in each
+    instance of the Hopper kernel in the built library's SASS; fail unless
+    K3, K5 and K7c are all there, each with HGMMA and UTMALDG and no HMMA."""
     from tpu_operator_torch import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -319,13 +362,22 @@ def k3_sass() -> None:
         [cuobjdump, "-sass", _build.build_info["path"]], capture_output=True, text=True,
         timeout=120,
     ).stdout
-    bodies = [f for f in sass.split("Function : ")[1:] if K3_KERNEL in f.split("\n", 1)[0]]
-    if len(bodies) != 1:
-        raise RuntimeError(f"{K3_KERNEL} found {len(bodies)} times in the SASS")
-    hgmma, utmaldg = bodies[0].count("HGMMA"), bodies[0].count("UTMALDG")
-    log(f"{K3_KERNEL} SASS: HGMMA {hgmma}, UTMALDG {utmaldg}, HMMA {bodies[0].count(' HMMA')}")
-    if hgmma == 0 or utmaldg == 0:
-        raise RuntimeError(f"{K3_KERNEL} has HGMMA {hgmma} and UTMALDG {utmaldg}")
+    found = {}
+    for body in sass.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0]
+        if WGMMA_KERNEL not in name:
+            continue
+        args = re.search(r"StepE(\d+)ELb([01])E", name)
+        label = WGMMA_INSTANCES.get(args.groups() if args else None, name.strip())
+        found[label] = (body.count("HGMMA"), body.count("UTMALDG"), body.count(" HMMA"))
+        log(f"{WGMMA_KERNEL} {label} SASS: HGMMA {found[label][0]}, "
+            f"UTMALDG {found[label][1]}, HMMA {found[label][2]}")
+    if sorted(found) != sorted(WGMMA_INSTANCES.values()):
+        raise RuntimeError(f"{WGMMA_KERNEL} instances in the SASS: {sorted(found)}, "
+                           f"expected {sorted(WGMMA_INSTANCES.values())}")
+    for label, (hgmma, utmaldg, hmma) in found.items():
+        if hgmma == 0 or utmaldg == 0 or hmma:
+            raise RuntimeError(f"{label} has HGMMA {hgmma}, UTMALDG {utmaldg}, HMMA {hmma}")
 
 
 def check_variant(fa, variant, q, k, v, bq, bk, causal) -> float:
@@ -361,14 +413,19 @@ def check_variant(fa, variant, q, k, v, bq, bk, causal) -> float:
 
 def variant_rows(fa, qkv, peak_flops, peak_bytes) -> list:
     """K4-K6b: checked at the variants' test shapes and at the breakdown's
-    (8, 8192, 128/128, causal), then timed there."""
+    (8, 8192, 128/128, causal), K5 also at the Hopper kernel's edges
+    (``K3_EDGE_SHAPES``), then timed at the breakdown's shape."""
     heads, seq = 8, 8192
     bq, bk = fa.BLOCK_Q_CAP, fa.BLOCK_K_CAP
     worst = {variant: 0.0 for variant, _, _ in VARIANTS}
-    for h, s, bq_, bk_, causal in VARIANT_TEST_SHAPES + [(heads, seq, bq, bk, True)]:
+    shapes = [(shape, tuple(worst)) for shape in VARIANT_TEST_SHAPES]
+    shapes += [(shape, ("bf16exp",)) for shape in K3_EDGE_SHAPES]
+    shapes.append(((heads, seq, bq, bk, True), tuple(worst)))
+    for (h, s, bq_, bk_, causal), variants in shapes:
         q, k, v = qkv(h, s)
-        for variant in worst:
-            worst[variant] = max(worst[variant], check_variant(fa, variant, q, k, v, bq_, bk_, causal))
+        for variant in variants:
+            err = check_variant(fa, variant, q, k, v, bq_, bk_, causal)
+            worst[variant] = max(worst[variant], err)
         torch.cuda.empty_cache()
     performed = fa.causal_flops(seq, heads, fa.LANES, bq, bk)
     useful = 4.0 * heads * fa.LANES * seq * (seq + 1) / 2.0

@@ -97,6 +97,23 @@ SHAPES = [(512, 2, 128, 128), (512, 1, 128, 256), (1024, 2, 128, 256)]
 def test_mode_matches_jax(mode, seq, heads, bq, bk):
     """Port-plain against interpreted Pallas within ``PLAIN_TOL``; each
     side against the f32 oracle under 2e-2."""
+    assert_mode_matches_jax(mode, seq, heads, bq, bk)
+
+
+# K7c's Hopper kernel at its edges: an odd unmasked sub-tile left after the
+# pairs (64/64), and eight sub-tiles per k-block, so the ring wraps inside
+# one (128/512)
+PAIRED16_EDGE_SHAPES = [(512, 1, 64, 64), (1024, 2, 128, 512)]
+
+
+@pytest.mark.parametrize("seq,heads,bq,bk", PAIRED16_EDGE_SHAPES)
+def test_paired16_matches_jax_at_the_hopper_edges(seq, heads, bq, bk):
+    """As test_mode_matches_jax, at the tilings the card's K7c runs at its
+    edges."""
+    assert_mode_matches_jax("paired16", seq, heads, bq, bk)
+
+
+def assert_mode_matches_jax(mode, seq, heads, bq, bk):
     got = port_output(mode, seq, heads, bq, bk)
     want = jax_output(mode, seq, heads, bq, bk)
     truth = oracle(seq, heads, bk)

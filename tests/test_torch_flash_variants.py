@@ -54,6 +54,32 @@ def test_attention_variant_matches_jax(variant, seq, heads, bq, bk, causal):
     assert float(np.abs(want - oracle).max()) < 2e-2
 
 
+# (seq, heads, block_q, block_k, causal): the edges of the Hopper kernel K5
+# runs on the card, K3's edge tilings: one warpgroup and a q-block with a
+# single sub-tile (64/64), one warpgroup over two (64/128), eight sub-tiles
+# per k-block so the ring wraps inside a block (128/512), and no mask
+BF16EXP_EDGE_SHAPES = [
+    (128, 1, 64, 64, True),
+    (256, 2, 64, 128, True),
+    (1024, 2, 128, 512, True),
+    (1024, 2, 128, 128, False),
+]
+
+
+@pytest.mark.parametrize("seq,heads,bq,bk,causal", BF16EXP_EDGE_SHAPES)
+def test_bf16exp_matches_jax_at_the_hopper_edges(seq, heads, bq, bk, causal):
+    """Port against JAX: max-abs <= 1e-2, or one bf16 ulp of the
+    reference's output (at most 2^-7 of it) where that is more. Both round
+    p to bf16 after their own exp and the output to bf16, so a value near a
+    rounding midpoint may land one ulp apart; at seq 128 the first rows
+    average two or three keys and keep |output| above 2, where one ulp is
+    1.56e-2. Each side against the f32 oracle: < 2e-2."""
+    got, want, oracle = run_both("bf16exp", seq, heads, bq, bk, causal, seed=seq + heads + bk)
+    assert (np.abs(got - want) <= np.maximum(1e-2, 2.0**-7 * np.abs(want))).all()
+    assert float(np.abs(got - oracle).max()) < 2e-2
+    assert float(np.abs(want - oracle).max()) < 2e-2
+
+
 def test_pipelined_plain_is_full():
     """``pipelined`` computes the same function as ``full``: the port has
     one plain version for both, so the outputs are equal bit for bit."""

@@ -161,12 +161,27 @@ def test_k3_tiling_contract(block_q, takes):
             port.check_kernel_tiling("flash_fwd", block_q, 128)
 
 
+@pytest.mark.parametrize("name", ["flash_fwd_bf16exp", "flash_fwd_paired16"])
+@pytest.mark.parametrize("block_q,takes", [(32, False), (64, True), (128, True), (256, False)])
+def test_hopper_variants_take_k3s_tiling_contract(name, block_q, takes):
+    """K5 and K7c run on K3's Hopper kernel, so they take its block_q 64 or
+    128, and block_k a multiple of 64."""
+    if takes:
+        port.check_kernel_tiling(name, block_q, 128)
+    else:
+        with pytest.raises(ValueError, match="block_q 64 or 128"):
+            port.check_kernel_tiling(name, block_q, 128)
+    with pytest.raises(ValueError):
+        port.check_kernel_tiling(name, 128, 96)
+
+
 def test_synchronous_kernels_keep_their_tiling_contract():
-    """K4-K7c keep block_q a multiple of 16 up to 128; every kernel takes
-    block_k a multiple of 64 only."""
+    """K4, K6a, K6b, K7a and K7b keep block_q a multiple of 16 up to 128;
+    every kernel takes block_k a multiple of 64 only."""
     port.check_kernel_tiling("flash_fwd_pipelined", 32, 128)
     port.check_kernel_tiling("flash_fwd_paired", 16, 64)
-    for name, bq, bk in (("flash_fwd_pipelined", 144, 128), ("flash_fwd_bf16exp", 24, 128),
+    port.check_kernel_tiling("flash_fwd_bf16s", 32, 128)
+    for name, bq, bk in (("flash_fwd_pipelined", 144, 128), ("flash_fwd_bf16s", 24, 128),
                          ("flash_fwd", 128, 96), ("flash_qk_only", 64, 0)):
         with pytest.raises(ValueError):
             port.check_kernel_tiling(name, bq, bk)

@@ -117,6 +117,40 @@ def test_every_launch_counter_has_an_entry():
         assert entry in entries, f"launch counter {counter} names no C entry ({entry})"
 
 
+def entry_body(src_name: str, entry: str) -> str:
+    """The body of the C entry ``entry`` in one ``csrc`` file."""
+    text = _strip_comments((_build.CSRC / src_name).read_text())
+    m = re.search(r'extern\s+"C"\s+int\s+' + entry + r"\s*\([^)]*\)\s*\{", text)
+    assert m, f"no C entry {entry} in {src_name}"
+    depth, pos = 1, m.end()
+    while depth:
+        depth += {"{": 1, "}": -1}.get(text[pos], 0)
+        pos += 1
+    return text[m.end():pos - 1]
+
+
+# entry -> (its instance of the Hopper kernel's Step and PAIRED, its scale):
+# K3 works in the log2 domain, K5 and K7c on the reference's s*scale
+HOPPER_ENTRIES = {
+    "flash_fwd_bf16": ("kFull", "false", "SCALE_LOG2"),
+    "flash_fwd_bf16exp": ("kBf16Exp", "false", "SCALE"),
+    "flash_fwd_paired16": ("kBf16S", "true", "SCALE"),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(HOPPER_ENTRIES))
+def test_hopper_entries_launch_through_launch_wgmma(entry):
+    """K3, K5 and K7c each launch their own instance of the Hopper kernel
+    (TMA ring, wgmma) with their scale, and nothing else."""
+    body = entry_body("flash.cu", entry)
+    m = re.fullmatch(
+        r"\s*return\s+launch_wgmma<Step::(\w+),\s*(true|false),\s*\w+>\(([^;]*)\);\s*", body)
+    assert m, f"{entry} does not launch through launch_wgmma: {body!r}"
+    args = [a.strip() for a in m.group(3).split(",")]
+    assert (m.group(1), m.group(2), args[-2]) == HOPPER_ENTRIES[entry]
+    assert args[-1] == "stream"
+
+
 def test_error_string_is_bound(bound):
     fn = bound["cuda_error_string"]
     assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_char_p

@@ -14,7 +14,9 @@
 // drain, then the masked tail as K3 runs it.
 // K5 flash_fwd_bf16exp replaces variant "bf16exp" (flashattn.py:153): as
 // K3, but p = exp(bf16(s - m_new)) rounded to bf16, with the difference in
-// natural-log units, l summing that bf16 p, and the same p into PV.
+// natural-log units (s = q.k^T*scale rounded as the reference's product is,
+// then exp taken as exp2f(x*log2e)), l summing that bf16 p, and the same p
+// into PV.
 // K6a flash_softmax_stub replaces variant "softmax_stub" (flashattn.py:192):
 // for every k-block j < hi, unmasked, acc += bf16((q.k^T*scale)*0.001).v;
 // output bf16(acc), no m, no l, no division.
@@ -29,27 +31,32 @@
 // same way: K6a does both products over the causal tiling (1.4e11 FLOPs),
 // K6b half of them.
 //
-// K3's design (flash_fwd_wgmma_kernel), for Hopper. What bound the first
-// K3 (the synchronous design below) was its staging and its
-// products: every 64-key sub-tile was staged by 16-byte loads between two
-// block barriers with no product running, at one 256-thread block per SM,
-// and both products ran on mma.sync, which cannot reach the tensor cores'
-// rate. Now K, V and Q arrive by TMA and both products run on wgmma:
+// The Hopper kernel (flash_fwd_wgmma_kernel<STEP, PAIRED, STAGES>), three
+// instances: K3 <kFull, false, 2>, K5 <kBf16Exp, false, 2> and K7c
+// <kBf16S, true, 4>. What bound the first K3 (the synchronous design below)
+// was its staging and its products: every 64-key sub-tile was staged by
+// 16-byte loads between two block barriers with no product running, at one
+// 256-thread block per SM, and both products ran on mma.sync, which cannot
+// reach the tensor cores' rate. K5 and K7c are K3's function with another
+// softmax, so they lost the same way (on an H100, 4.9-5.6x the time of
+// PyTorch's scaled_dot_product_attention against K3's 1.46x) and take K3's
+// design with their own softmax step:
 // - Host: a tensor map per Q, K, V over (heads*seq, 128) bf16 with 64 x 64
 //   boxes (one box row is 128 B) and 128-byte swizzle, D = 128 taking two
 //   boxes; cuTensorMapEncodeTiled is reached through the runtime
 //   (cudaGetDriverEntryPoint*), so the library needs no -lcuda. The maps
 //   are encoded on every call and passed as __grid_constant__ parameters.
+//   Each instance has its own shared-memory attribute, set once per device.
 // - One block per (q-block, head) with one consumer warpgroup per 64 query
 //   rows (block_q 128: two; 64: one). Thread 0 loads the block's Q once
-//   and keeps K/V in a ring of STAGES = 2 stages of 64 keys, each behind a
-//   "full" mbarrier (expect_tx); a stage is refilled with sub-tile
-//   kt-1+STAGES once every warp has arrived on its "empty" mbarrier, after
-//   sub-tile kt-1's PV, so sub-tile kt+1 loads while kt is computed. Two
-//   stages, not three: at 1 KB + 2 x 32 KB + 32 KB = 97 KB of shared memory
-//   and 126 registers two 256-thread blocks share an SM, so one block's
-//   warpgroups run their products while the other's run the softmax; a
-//   third stage leaves room for one block and measured slower on the H100.
+//   and keeps K/V in a ring of STAGES stages of 64 keys, each behind a
+//   "full" mbarrier (expect_tx); the stage of sub-tile j is refilled with
+//   j+STAGES once every warp has arrived on its "empty" mbarrier, after
+//   j's PV, so later sub-tiles load while j is computed. K3 and K5 have two
+//   stages: at 1 KB + 2 x 32 KB + 32 KB = 97 KB of shared memory and 126
+//   registers two 256-thread blocks share an SM, so one block's warpgroups
+//   run their products while the other's run the softmax; a third stage
+//   leaves room for one block and measured slower on the H100.
 // - S = Q.K^T: eight wgmma m64n64k16 over D, Q and the K stage both
 //   K-major from shared memory by descriptor (SBO 1024 B, a k16 step 32 B
 //   inside the swizzled row, the fifth step in the second box). PV: four
@@ -57,43 +64,62 @@
 //   fragment, the V stage MN-major (the transpose bit; LBO 8 KB to the
 //   second box of D, SBO 1024 B to the next 8 keys).
 // - A warp's slice of a wgmma m64nN f32 accumulator is the mma.sync m16n8
-//   C layout repeated over N/8, so the online softmax is K3's own
-//   (online_softmax<false, MASKED>, log2 domain, the masked-row guard) and
-//   the S-to-A-fragment reuse carries over. No generic-proxy write reaches
+//   C layout repeated over N/8, so each instance's softmax is the
+//   synchronous kernels' own (softmax_step): K3 online_softmax<false> (log2
+//   domain, scale*log2e, the masked-row guard); K5 online_softmax<true>
+//   (the reference's s*scale, p = bf16(exp(bf16(s - m_new))) already bf16,
+//   so packing it is exact); K7c scores_b then softmax_b, whose packed p
+//   pairs are the A fragment as they stand. No generic-proxy write reaches
 //   the shared memory that TMA and wgmma use, so no proxy fence is needed.
 // - The logical tiling is the caller's (block_q, block_k) as on the TPU: a
 //   causal q-block processes k-blocks [0, diag_stop(i)), the first n_full =
 //   i*block_q/block_k without a mask and the rest masked, so the FLOPs
 //   performed are exactly causal_flops(seq, H, D, block_q, block_k);
 //   heavier causal q-blocks are scheduled first. The ring runs over the
-//   sub-tiles of both ranges with one counter, so its stage and parity
-//   carry over from the unmasked loop into the masked tail.
+//   sub-tiles of every range with one counter, so its stage and parity
+//   carry over from one loop into the next.
+// - K3's body, per sub-tile: S, wait, softmax, PV, wait. PV is waited for
+//   at the end: a wgmma chain in flight whose accumulators another
+//   instruction defines is serialized by ptxas (C7515), so every register a
+//   chain in flight reads or writes is final before wgmma.fence, with
+//   fence_regs after each wait.
+// - K7c's pair body (the reference's body2), over the unmasked range two
+//   sub-tiles kt, kt+1 at a time with two S accumulator sets: S_a issued
+//   and committed, S_b issued (behind a wgmma.fence of its own) and
+//   committed, wgmma.wait_group 1 so S_a has landed, softmax_a while S_b
+//   runs on the tensor cores, PV_a, wait_group 0 (S_b and PV_a),
+//   softmax_b, PV_b, wait. A pair holds two stages and its second S set
+//   (156 registers a thread against K3's 126) leaves one block an SM, so
+//   its ring has four stages (161 KB). Then an odd leftover sub-tile and
+//   the masked tail run K3's body: the reference's body1 and tail. K7c
+//   rounds each S set to bf16 as its softmax starts (lazy rounding); the
+//   reference rounds both before either softmax, the same values in
+//   another order of issue. Per element its arithmetic is the synchronous
+//   K7b's, in the same k16 steps in the same order.
 // Not done yet: warp specialisation (a producer warp, setmaxnreg), the next
-// S product overlapped with the current softmax (K4's structure, for K4's
-// redesign), persistent blocks, clusters and multicast. The softmax still
+// S product overlapped with the current softmax in K3 (K4's structure),
+// persistent blocks, clusters and multicast. In K3 and K5 the softmax still
 // runs between the two products with the tensor cores idle.
 //
-// The synchronous design (K4-K7c, and K3 before): one block per (q-block,
-// head) with block_q/16 warps; each warp owns 16 query rows. A warp keeps
-// its Q rows in registers as mma.sync A fragments for the whole kernel,
-// and its f32 accumulator (16 x 128), m and l in registers. K and V stream
-// through shared memory in 64-key sub-tiles (rows padded to 136 bf16 so
-// the fragment reads hit 32 distinct banks). Both products run on tensor
-// cores as mma.sync m16n8k16 bf16 with f32 accumulation; the S
-// accumulator's layout is the PV A-fragment's layout, so p goes from
-// registers to the second product without shared memory. The tiling,
-// n_full, diag_stop and the order of q-blocks are K3's. The online-softmax
-// update runs per 64-key sub-tile; the result is the same function up to
-// the order of f32 sums and where p is rounded to bf16.
+// The synchronous design (K4, K6a, K6b, K7a, K7b, and K3, K5 and K7c
+// before): one block per (q-block, head) with block_q/16 warps; each warp
+// owns 16 query rows. A warp keeps its Q rows in registers as mma.sync A
+// fragments for the whole kernel, and its f32 accumulator (16 x 128), m and
+// l in registers. K and V stream through shared memory in 64-key sub-tiles
+// (rows padded to 136 bf16 so the fragment reads hit 32 distinct banks).
+// Both products run on tensor cores as mma.sync m16n8k16 bf16 with f32
+// accumulation; the S accumulator's layout is the PV A-fragment's layout,
+// so p goes from registers to the second product without shared memory.
+// The tiling, n_full, diag_stop and the order of q-blocks are K3's. The
+// online-softmax update runs per 64-key sub-tile; the result is the same
+// function up to the order of f32 sums and where p is rounded to bf16.
 //
-// K5, K6a, K6b and K7b are one kernel template (flash_fwd_kernel) with a
-// different step per sub-tile. K3 works in the log2 domain (s*scale*log2e,
-// exp2f); K5 rounds s*scale - m in natural-log units, as the reference
-// does, and only then takes exp as exp2f(x*log2e). The stubs run every
-// sub-tile of [0, hi) unmasked; K6b stages only K and adds the scores of
-// sub-tiles 0 and 1 of each k-block into accumulator n-tiles 0-7 and 8-15
-// (the same fragment layout), while the score products of the block's
-// other sub-tiles still run (mma16816 is asm volatile).
+// K6a, K6b and K7b are one kernel template (flash_fwd_kernel) with a
+// different step per sub-tile. The stubs run every sub-tile of [0, hi)
+// unmasked; K6b stages only K and adds the scores of sub-tiles 0 and 1 of
+// each k-block into accumulator n-tiles 0-7 and 8-15 (the same fragment
+// layout), while the score products of the block's other sub-tiles still
+// run (mma16816 is asm volatile).
 // K4 is a kernel of its own because its loop differs: K_{j+1} and V_j are
 // resident together, so it keeps two stages of K and V in dynamic shared
 // memory (4 x 64 x 136 x 2 B = 69,632 B, above the 48 KB of static shared
@@ -110,26 +136,21 @@
 // K7b flash_fwd_bf16s replaces "bf16s" (scores_b/soft_b, :52-67): the
 // scores rounded to bf16 once, s_b = bf16(s*scale); m = max(m, rowmax s_b)
 // kept in f32, natural-log units; p = exp(s_b - bf16(m)) in bf16; l sums p
-// in f32; the masked tail is bf16 -inf. It is a fifth Step of
-// flash_fwd_kernel whose softmax runs on packed __nv_bfloat162 pairs (the S
-// fragment's (e0, e1) and (e2, e3) are adjacent columns of rows g and g+8):
-// __hmax2 for the row max, __hsub2 and h2exp for p, and the packed p is
-// the PV A fragment as it stands, with no pack_bf16.
-// K7a flash_fwd_paired replaces "paired" (:90-108) and K7c
-// flash_fwd_paired16 replaces "paired16" (:69-89): K3's and K7b's step in
-// a loop that pairs sub-tiles over the unmasked range. The reference pairs
+// in f32; the masked tail is bf16 -inf. It is a Step of flash_fwd_kernel
+// whose softmax runs on packed __nv_bfloat162 pairs (the S fragment's
+// (e0, e1) and (e2, e3) are adjacent columns of rows g and g+8): __hmax2
+// for the row max, __hsub2 and h2exp for p, and the packed p is the PV A
+// fragment as it stands, with no pack_bf16.
+// K7a flash_fwd_paired replaces "paired" (:90-108): K3's step in a loop
+// that pairs sub-tiles over the unmasked range. The reference pairs
 // k-blocks, its unit of update; the port's unit is the 64-key sub-tile, so
 // one stage call fills two sub-tiles of K and V (69,632 B of dynamic shared
 // memory, as K4) behind one pair of barriers, both score products are
-// issued, then softmax+PV runs on the first S set and on the second. K7c
-// rounds each set to bf16 as its softmax starts (lazy rounding); the
-// reference rounds both sets before either softmax, which gives the same
-// values in another order of issue and was measured slower on the H100,
-// so K7c is "paired16 (lazy rounding)". No S is carried across
-// iterations (K4 carries one and keeps a barrier pair per sub-tile). An
-// odd leftover sub-tile runs alone, then the masked tail as K3 runs it:
-// the reference's body2/body1/tail. Per element the arithmetic is K3's
-// (K7b's), so K7c equals K7b bit for bit and K7a equals K3.
+// issued, then softmax+PV runs on the first S set and on the second. An
+// odd leftover sub-tile runs alone, then the masked tail as K3 runs it.
+// Per element the arithmetic is K3's, so K7a equals K3.
+// K7c flash_fwd_paired16 replaces "paired16" (:69-89) on the Hopper kernel
+// (above): K7b's softmax in the pair body, so it equals K7b.
 
 #include <cuda.h>  // CUtensorMap and its enums, for the tensor maps
 #include <cuda_bf16.h>
@@ -147,7 +168,7 @@ constexpr int LDS = D + 8;    // padded shared row, in bf16 elements
 constexpr int MAX_WARPS = 8;  // block_q <= 128
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float STUB_SCALE = 0.001f;  // softmax_stub's p = bf16((s*scale)*0.001)
-constexpr int PIPE_SMEM = 4 * KT * LDS * 2;  // K4, K7a, K7c: two stages of K and V, bytes
+constexpr int PIPE_SMEM = 4 * KT * LDS * 2;  // K4, K7a: two stages of K and V, bytes
 
 enum class Step { kFull, kBf16Exp, kStub, kQkOnly, kBf16S };
 
@@ -243,7 +264,8 @@ __device__ __forceinline__ void pv(const float (&p)[KT / 8][4],
 // log2 domain. BF16EXP true (K5): scale is 1/sqrt(D), m is in natural-log
 // units, p = bf16(exp(bf16(s - m_new))) and l sums that p. The fragment
 // layout is mma.sync's m16n8 C layout, which is also a warp's slice of a
-// wgmma m64nN accumulator, so K3's Hopper kernel runs this step as it is.
+// wgmma m64nN accumulator, so the Hopper kernel (K3, K5) runs this step as
+// it is.
 template <bool BF16EXP, bool MASKED>
 __device__ __forceinline__ void online_softmax(float (&s)[KT / 8][4], float (&acc)[D / 8][4],
                                                float (&m)[2], float (&l)[2], float scale,
@@ -299,14 +321,14 @@ __device__ __forceinline__ void online_softmax(float (&s)[KT / 8][4], float (&ac
   }
 }
 
-// online_softmax, then acc += bf16(p) . V on mma.sync (K4, K5, K7a).
-template <bool BF16EXP, bool MASKED>
+// K3's online_softmax, then acc += bf16(p) . V on mma.sync (K4, K7a).
+template <bool MASKED>
 __device__ __forceinline__ void softmax_pv(float (&s)[KT / 8][4],
                                            const __nv_bfloat16* __restrict__ Vs,
                                            float (&acc)[D / 8][4], float (&m)[2],
                                            float (&l)[2], float scale, int qrow, int k0,
                                            int lane) {
-  online_softmax<BF16EXP, MASKED>(s, acc, m, l, scale, qrow, k0, lane);
+  online_softmax<false, MASKED>(s, acc, m, l, scale, qrow, k0, lane);
   pv(s, Vs, acc, lane);
 }
 
@@ -335,14 +357,12 @@ __device__ __forceinline__ void scores_b(const float (&s)[KT / 8][4], uint32_t (
   }
 }
 
-// K7b's soft_b and PV on the packed scores sb: m_new = max(m, rowmax s_b)
-// in f32, natural-log units; alpha = exp(m - m_new) in f32; p = exp(s_b -
-// bf16(m_new)) in bf16; l = alpha*l + sum_f32 p; acc = acc*alpha + p.v,
-// with p as it is as the A fragment.
-__device__ __forceinline__ void soft_b(uint32_t (&sb)[KT / 8][2],
-                                       const __nv_bfloat16* __restrict__ Vs,
-                                       float (&acc)[D / 8][4], float (&m)[2], float (&l)[2],
-                                       int lane) {
+// The softmax of K7b's soft_b on the packed scores sb: m_new = max(m,
+// rowmax s_b) in f32, natural-log units; alpha = exp(m - m_new) in f32;
+// sb becomes p = exp(s_b - bf16(m_new)) in bf16; l = alpha*l + sum_f32 p;
+// acc is rescaled by alpha. The packed p is the PV A fragment as it stands.
+__device__ __forceinline__ void softmax_b(uint32_t (&sb)[KT / 8][2], float (&acc)[D / 8][4],
+                                          float (&m)[2], float (&l)[2]) {
   float alpha[2];
   __nv_bfloat162 ref2[2];
 #pragma unroll
@@ -380,6 +400,15 @@ __device__ __forceinline__ void soft_b(uint32_t (&sb)[KT / 8][2],
     acc[nt][2] *= alpha[1];
     acc[nt][3] *= alpha[1];
   }
+}
+
+// K7b's soft_b: softmax_b, then acc += p.v on mma.sync with p as it is as
+// the A fragment.
+__device__ __forceinline__ void soft_b(uint32_t (&sb)[KT / 8][2],
+                                       const __nv_bfloat16* __restrict__ Vs,
+                                       float (&acc)[D / 8][4], float (&m)[2], float (&l)[2],
+                                       int lane) {
+  softmax_b(sb, acc, m, l);
 #pragma unroll
   for (int kk = 0; kk < KT / 16; ++kk) {
     const uint32_t pa[4] = {sb[2 * kk][0], sb[2 * kk][1], sb[2 * kk + 1][0], sb[2 * kk + 1][1]};
@@ -387,7 +416,8 @@ __device__ __forceinline__ void soft_b(uint32_t (&sb)[KT / 8][2],
   }
 }
 
-// The online-softmax + PV step of the attention variants (K3, K5, K7b).
+// The online-softmax + PV step of the synchronous attention variants: K3's
+// (K7a) or K7b's.
 template <Step STEP, bool MASKED>
 __device__ __forceinline__ void attend(float (&s)[KT / 8][4],
                                        const __nv_bfloat16* __restrict__ Vs,
@@ -398,7 +428,7 @@ __device__ __forceinline__ void attend(float (&s)[KT / 8][4],
     scores_b<MASKED>(s, sb, scale, qrow, k0, lane);
     soft_b(sb, Vs, acc, m, l, lane);
   } else {
-    softmax_pv<STEP == Step::kBf16Exp, MASKED>(s, Vs, acc, m, l, scale, qrow, k0, lane);
+    softmax_pv<MASKED>(s, Vs, acc, m, l, scale, qrow, k0, lane);
   }
 }
 
@@ -419,8 +449,8 @@ __device__ __forceinline__ void load_q(const __nv_bfloat16* __restrict__ q, int 
 
 // ROWS rows of K (and of V, unless qk_only) from device memory into the
 // padded shared tiles, 16 bytes a thread; barriers on both sides so the
-// previous sub-tile is fully consumed and this one fully written. K7a/K7c
-// stage two sub-tiles (ROWS = 2*KT) at once, behind one pair of barriers.
+// previous sub-tile is fully consumed and this one fully written. K7a
+// stages two sub-tiles (ROWS = 2*KT) at once, behind one pair of barriers.
 template <bool WITH_V = true, int ROWS = KT>
 __device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ k,
                                       const __nv_bfloat16* __restrict__ v,
@@ -461,7 +491,7 @@ __device__ __forceinline__ void finish_l(float (&l)[2]) {
   }
 }
 
-// K5, K6a, K6b, K7b; scale is 1/sqrt(D).
+// K6a, K6b, K7b; scale is 1/sqrt(D).
 template <Step STEP>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -584,34 +614,32 @@ flash_fwd_pipelined_kernel(const __nv_bfloat16* __restrict__ q,
       stage(k, v, Ks1, Vs1, (kt + 1) * KT);
       scores(qa, Ks1, sb, lane);
     }
-    softmax_pv<false, false>(sa, Vs0, acc, m, l, scale_log2, qrow, kt * KT, lane);
+    softmax_pv<false>(sa, Vs0, acc, m, l, scale_log2, qrow, kt * KT, lane);
     if (kt + 1 >= nf) break;  // drained
     if (kt + 2 < nf) {
       stage(k, v, Ks0, Vs0, (kt + 2) * KT);
       scores(qa, Ks0, sa, lane);
     }
-    softmax_pv<false, false>(sb, Vs1, acc, m, l, scale_log2, qrow, (kt + 1) * KT, lane);
+    softmax_pv<false>(sb, Vs1, acc, m, l, scale_log2, qrow, (kt + 1) * KT, lane);
   }
   for (int kt = nf; kt < hi * sub; ++kt) {  // the diagonal tail, not pipelined
     stage(k, v, Ks0, Vs0, kt * KT);
     scores(qa, Ks0, sa, lane);
-    softmax_pv<false, true>(sa, Vs0, acc, m, l, scale_log2, qrow, kt * KT, lane);
+    softmax_pv<true>(sa, Vs0, acc, m, l, scale_log2, qrow, kt * KT, lane);
   }
   finish_l(l);
   store_out(o, qrow, acc, l, lane);
 }
 
-// K7a (BF16S false: K3's step, scale*log2e) and K7c (BF16S true: K7b's
-// step, 1/sqrt(D)): over the unmasked range, pairs of sub-tiles staged
-// together (K rows 0-127 then V rows 0-127 in dynamic shared memory), both
-// score products issued before either softmax; then an odd leftover
-// sub-tile alone; then the masked tail as K3 runs it.
-template <bool BF16S>
+// K7a (K3's step, scale*log2e): over the unmasked range, pairs of
+// sub-tiles staged together (K rows 0-127 then V rows 0-127 in dynamic
+// shared memory), both score products issued before either softmax; then
+// an odd leftover sub-tile alone; then the masked tail as K3 runs it.
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_fwd_paired_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                         int seq, int block_q, int block_k, int causal, float scale) {
-  constexpr Step STEP = BF16S ? Step::kBf16S : Step::kFull;
+  constexpr Step STEP = Step::kFull;
   extern __shared__ uint4 smem_raw[];  // 16-byte aligned
   __nv_bfloat16* const Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* const Vs = Ks + 2 * KT * LDS;
@@ -662,9 +690,11 @@ flash_fwd_paired_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 }
 
 // ---------------------------------------------------------------------------
-// K3 on Hopper: a TMA ring of K/V sub-tiles and both products on wgmma.
+// The Hopper kernel (K3, K5, K7c): a TMA ring of K/V sub-tiles and both
+// products on wgmma.
 
-constexpr int STAGES = 2;                    // K/V stages in the ring
+constexpr int K3_STAGES = 2;                 // K/V stages in K3's and K5's ring
+constexpr int K7C_STAGES = 4;                // K7c's: a pair holds two at once
 constexpr int BOX_COLS = 64;                 // a TMA box: 64 bf16 = one 128-byte swizzled row
 constexpr int HALF_BYTES = KT * BOX_COLS * 2;  // one 64 x 64 box: 8 KB
 constexpr int TILE_BYTES = 2 * HALF_BYTES;   // 64 rows x D: two boxes, 16 KB
@@ -726,8 +756,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of accumulator registers
@@ -812,17 +844,60 @@ __device__ __forceinline__ void pv_wgmma(const uint32_t (&pa)[KT / 16][4], uint3
     wgmma_pv(acc, pa[kk], smem_desc(v_tile + kk * 16 * 128, HALF_BYTES, ATOM_BYTES));
 }
 
-// K3. Dynamic shared memory, 1024-aligned: STAGES K tiles, STAGES V tiles,
-// then Q (one 16 KB tile per warpgroup). Thread 0 drives the ring: it loads
-// Q and the first STAGES sub-tiles, and refills the stage of sub-tile kt-1
-// with kt-1+STAGES once every warp has arrived on that stage's "empty"
-// barrier, which a warp does once sub-tile kt's S has landed (its PV of
-// kt-1 was waited for at the end of the previous iteration).
+// The Hopper kernel's softmax of one sub-tile: m and l move on, acc is
+// rescaled, and s (the sub-tile's raw dot products) becomes p. kFull (K3):
+// online_softmax in the log2 domain, p left in s in f32. kBf16Exp (K5):
+// online_softmax on the reference's s*scale, p left in s already rounded
+// to bf16. kBf16S (K7c): scores_b, rounded as the softmax starts (lazy
+// rounding), then softmax_b, whose packed p pairs are written to pa, the
+// PV A fragments, as they stand.
+template <Step STEP, bool MASKED>
+__device__ __forceinline__ void softmax_step(float (&s)[KT / 8][4], uint32_t (&pa)[KT / 16][4],
+                                             float (&acc)[D / 8][4], float (&m)[2],
+                                             float (&l)[2], float scale, int qrow, int k0,
+                                             int lane) {
+  if constexpr (STEP == Step::kBf16S) {
+    uint32_t sb[KT / 8][2];
+    scores_b<MASKED>(s, sb, scale, qrow, k0, lane);
+    softmax_b(sb, acc, m, l);
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      pa[kk][0] = sb[2 * kk][0];
+      pa[kk][1] = sb[2 * kk][1];
+      pa[kk][2] = sb[2 * kk + 1][0];
+      pa[kk][3] = sb[2 * kk + 1][1];
+    }
+  } else {
+    online_softmax<STEP == Step::kBf16Exp, MASKED>(s, acc, m, l, scale, qrow, k0, lane);
+  }
+}
+
+// p's A fragments after softmax_step: K3's and K5's p packed from s (K5's
+// exactly, it is bf16 already); K7c's are in pa. Packing once after the
+// masked/unmasked branch, not in each, keeps K3 at 126 registers (138
+// otherwise, which leaves one block an SM).
+template <Step STEP>
+__device__ __forceinline__ void pack_step(const float (&s)[KT / 8][4],
+                                          uint32_t (&pa)[KT / 16][4]) {
+  if constexpr (STEP != Step::kBf16S) pack_p(s, pa);
+}
+
+// K3 <kFull, false, K3_STAGES>, K5 <kBf16Exp, false, K3_STAGES> and K7c
+// <kBf16S, true, K7C_STAGES>. Dynamic shared memory, 1024-aligned: STAGES
+// K tiles, STAGES V tiles, then Q (one 16 KB tile per warpgroup). Thread 0
+// drives the ring: it loads Q and the first STAGES sub-tiles, and refills
+// the stage of sub-tile j with j+STAGES once every warp has arrived on that
+// stage's "empty" barrier (release(j)). A warp arrives once its PV of j
+// has been waited for and its next S is issued (K3's body: has landed).
+// PAIRED (K7c) runs the unmasked range two sub-tiles a body with two S
+// accumulator sets: S_a and S_b are issued, S_b runs on the tensor cores
+// while softmax_a runs, then PV_a, then softmax_b and PV_b.
+template <Step STEP, bool PAIRED, int STAGES>
 __global__ void __launch_bounds__(MAX_WG * 128, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                       int seq, int block_q, int block_k, int causal, float scale_log2) {
+                       int seq, int block_q, int block_k, int causal, float scale) {
   extern __shared__ uint4 smem_raw[];  // aligned to 1024 below
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], qbar;
   const uint32_t raw = smem_u32(smem_raw);
@@ -860,6 +935,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       tma_box(v_tiles + s * TILE_BYTES + h * HALF_BYTES, &vmap, h * BOX_COLS, row0 + kt * KT, bar);
     }
   };
+  // this warp is done with sub-tile j's stage; thread 0 refills it with
+  // j+STAGES once every warp is
+  auto release = [&](int j) {
+    const int st = j % STAGES;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[st]));
+    if (threadIdx.x == 0 && j + STAGES < n_tiles) {
+      mbar_wait(smem_u32(&empty[st]), (j / STAGES) & 1);
+      load_kv(j + STAGES);
+    }
+    __syncwarp();
+  };
   if (threadIdx.x == 0) {
     const uint32_t bar = smem_u32(&qbar);
     mbar_expect_tx(bar, block_q * D * 2);
@@ -875,33 +962,66 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float s[KT / 8][4];
+  uint32_t pa[KT / 16][4];
   const uint32_t q_tile = q_tiles + wg * TILE_BYTES;
   mbar_wait(smem_u32(&qbar), 0);
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  int kt = 0;
+  if constexpr (PAIRED) {
+    float s2[KT / 8][4];  // S of the pair's second sub-tile
+    for (; kt + 1 < n_unmasked; kt += 2) {  // below the diagonal, two at a time
+      const int sta = kt % STAGES, stb = (kt + 1) % STAGES;
+      mbar_wait(smem_u32(&full[sta]), (kt / STAGES) & 1);
+      wgmma_fence();
+      qk_wgmma(s, q_tile, k_tiles + sta * TILE_BYTES);
+      wgmma_commit();
+      // kt-1's PV was waited for at the end of the last body; with two
+      // stages its stage is the one kt+1 loads into
+      if (kt > 0) release(kt - 1);
+      mbar_wait(smem_u32(&full[stb]), ((kt + 1) / STAGES) & 1);
+      // s2's registers may have moved since the first fence: without this
+      // one ptxas injects a warpgroup.arrive here (C7519)
+      wgmma_fence();
+      qk_wgmma(s2, q_tile, k_tiles + stb * TILE_BYTES);
+      wgmma_commit();
+      wgmma_wait<1>();  // S_a has landed; S_b runs on while softmax_a does
+      fence_regs(s);
+      softmax_step<STEP, false>(s, pa, acc, m, l, scale, qrow, kt * KT, lane);
+      pack_step<STEP>(s, pa);
+      fence_regs(acc);
+      wgmma_fence();
+      pv_wgmma(pa, v_tiles + sta * TILE_BYTES, acc);
+      wgmma_commit();
+      wgmma_wait<0>();  // S_b and PV_a
+      fence_regs(s2);
+      fence_regs(acc);
+      release(kt);
+      softmax_step<STEP, false>(s2, pa, acc, m, l, scale, qrow, (kt + 1) * KT, lane);
+      pack_step<STEP>(s2, pa);
+      fence_regs(acc);
+      wgmma_fence();
+      pv_wgmma(pa, v_tiles + stb * TILE_BYTES, acc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+  }
+  // K3's body: every sub-tile of K3 and K5; K7c's odd leftover and masked
+  // tail, the ring counter kt carrying on from the pairs
+  for (; kt < n_tiles; ++kt) {
     const int st = kt % STAGES;
     mbar_wait(smem_u32(&full[st]), (kt / STAGES) & 1);
     wgmma_fence();
     qk_wgmma(s, q_tile, k_tiles + st * TILE_BYTES);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
-    if (kt > 0) {
-      const int prev = (kt - 1) % STAGES;
-      __syncwarp();
-      if (lane == 0) mbar_arrive(smem_u32(&empty[prev]));
-      if (threadIdx.x == 0 && kt - 1 + STAGES < n_tiles) {
-        mbar_wait(smem_u32(&empty[prev]), ((kt - 1) / STAGES) & 1);
-        load_kv(kt - 1 + STAGES);
-      }
-      __syncwarp();
-    }
+    if (kt > 0) release(kt - 1);
     if (kt < n_unmasked)  // below the diagonal: no mask
-      online_softmax<false, false>(s, acc, m, l, scale_log2, qrow, kt * KT, lane);
+      softmax_step<STEP, false>(s, pa, acc, m, l, scale, qrow, kt * KT, lane);
     else  // the diagonal tail
-      online_softmax<false, true>(s, acc, m, l, scale_log2, qrow, kt * KT, lane);
-    uint32_t pa[KT / 16][4];
-    pack_p(s, pa);
+      softmax_step<STEP, true>(s, pa, acc, m, l, scale, qrow, kt * KT, lane);
+    pack_step<STEP>(s, pa);
     // the rescaled acc and p's fragments are final before the products
     // start: a register an instruction defines inside the wgmma chain
     // would make ptxas serialize it
@@ -912,7 +1032,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // PV is waited for here and not behind the next S: ptxas serializes a
     // wgmma chain whose accumulators another instruction defines while it
     // is in flight, which the next S's would be
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc);
   }
   finish_l(l);
@@ -944,8 +1064,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int heads, int 
 using FlashKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
                              __nv_bfloat16*, int, int, int, int, float);
 
-// K4, K7a, K7c: two stages of K and V in dynamic shared memory, above the
-// 48 KB a kernel gets without asking.
+// K4, K7a: two stages of K and V in dynamic shared memory, above the 48 KB
+// a kernel gets without asking.
 int launch_two_stage(FlashKernel kernel, const void* q, const void* k, const void* v, void* o,
                      int heads, int seq, int block_q, int block_k, int causal, float scale,
                      void* stream) {
@@ -1001,12 +1121,18 @@ bool tile_map(CUtensorMap* map, const void* ptr, int rows) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-constexpr int WGMMA_SMEM_MAX = ATOM_BYTES + 2 * STAGES * TILE_BYTES + MAX_WG * TILE_BYTES;
-
 constexpr int MAX_DEVICES = 64;
 
-// K3's dynamic shared memory allowed on the current device, once per
-// device (a function attribute belongs to the device's context).
+// The Hopper kernel's dynamic shared memory: 1 KB alignment slack, a K
+// and a V tile per stage, a Q tile per warpgroup.
+constexpr int wgmma_smem(int stages, int warpgroups) {
+  return ATOM_BYTES + 2 * stages * TILE_BYTES + warpgroups * TILE_BYTES;
+}
+
+// An instance's dynamic shared memory allowed on the current device, once
+// per instance and device (a function attribute belongs to one function
+// in the device's context).
+template <Step STEP, bool PAIRED, int STAGES>
 cudaError_t allow_wgmma_smem() {
   static std::atomic<bool> done[MAX_DEVICES];
   int dev = 0;
@@ -1014,15 +1140,19 @@ cudaError_t allow_wgmma_smem() {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (done[dev].load()) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             WGMMA_SMEM_MAX);
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<STEP, PAIRED, STAGES>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wgmma_smem(STAGES, MAX_WG));
   if (err == cudaSuccess) done[dev].store(true);
   return err;
 }
 
-// K3: block_q 64 or 128 (whole warpgroups), block_k a multiple of 64.
+// K3, K5, K7c: block_q 64 or 128 (whole warpgroups), block_k a multiple of
+// 64. No fallback: a map that cannot be encoded or a refused launch is an
+// error the caller raises.
+template <Step STEP, bool PAIRED, int STAGES>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int heads, int seq,
-                 int block_q, int block_k, int causal, void* stream) {
+                 int block_q, int block_k, int causal, float scale, void* stream) {
   if (bad_shape(heads, seq, block_q, block_k) || (block_q != 64 && block_q != 128))
     return cudaErrorInvalidValue;
   CUtensorMap maps[3];
@@ -1030,13 +1160,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int heads
   if (!tile_map(&maps[0], q, rows) || !tile_map(&maps[1], k, rows) ||
       !tile_map(&maps[2], v, rows))
     return cudaErrorInvalidValue;
-  const cudaError_t attr = allow_wgmma_smem();
+  const cudaError_t attr = allow_wgmma_smem<STEP, PAIRED, STAGES>();
   if (attr != cudaSuccess) return (int)attr;
-  const int smem = ATOM_BYTES + 2 * STAGES * TILE_BYTES + (block_q / 64) * TILE_BYTES;
+  const int smem = wgmma_smem(STAGES, block_q / 64);
   dim3 grid(seq / block_q, heads);
-  flash_fwd_wgmma_kernel<<<grid, block_q * 2, smem, (cudaStream_t)stream>>>(
+  flash_fwd_wgmma_kernel<STEP, PAIRED, STAGES><<<grid, block_q * 2, smem, (cudaStream_t)stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), seq, block_q, block_k, causal,
-      SCALE_LOG2);
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -1045,13 +1175,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int heads
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                               int heads, int seq, int block_q, int block_k, int causal,
                               void* stream) {
-  return launch_wgmma(q, k, v, o, heads, seq, block_q, block_k, causal, stream);
+  return launch_wgmma<Step::kFull, false, K3_STAGES>(q, k, v, o, heads, seq, block_q, block_k,
+                                                    causal, SCALE_LOG2, stream);
 }
 
 extern "C" int flash_fwd_bf16exp(const void* q, const void* k, const void* v, void* o,
                                  int heads, int seq, int block_q, int block_k, int causal,
                                  void* stream) {
-  return launch<Step::kBf16Exp>(q, k, v, o, heads, seq, block_q, block_k, causal, stream);
+  return launch_wgmma<Step::kBf16Exp, false, K3_STAGES>(q, k, v, o, heads, seq, block_q, block_k,
+                                                       causal, SCALE, stream);
 }
 
 extern "C" int flash_softmax_stub(const void* q, const void* k, const void* v, void* o,
@@ -1082,13 +1214,13 @@ extern "C" int flash_fwd_pipelined(const void* q, const void* k, const void* v, 
 extern "C" int flash_fwd_paired(const void* q, const void* k, const void* v, void* o,
                                 int heads, int seq, int block_q, int block_k, int causal,
                                 void* stream) {
-  return launch_two_stage(flash_fwd_paired_kernel<false>, q, k, v, o, heads, seq, block_q,
-                          block_k, causal, SCALE_LOG2, stream);
+  return launch_two_stage(flash_fwd_paired_kernel, q, k, v, o, heads, seq, block_q, block_k,
+                          causal, SCALE_LOG2, stream);
 }
 
 extern "C" int flash_fwd_paired16(const void* q, const void* k, const void* v, void* o,
                                   int heads, int seq, int block_q, int block_k, int causal,
                                   void* stream) {
-  return launch_two_stage(flash_fwd_paired_kernel<true>, q, k, v, o, heads, seq, block_q,
-                          block_k, causal, SCALE, stream);
+  return launch_wgmma<Step::kBf16S, true, K7C_STAGES>(q, k, v, o, heads, seq, block_q, block_k,
+                                                     causal, SCALE, stream);
 }

@@ -14,7 +14,10 @@ of ``fa_common.setup``. The modes, each a kernel in ``csrc/flash.cu``:
   so the ratio sets the synchronous structure against it.
 * ``bf16s`` (K7b): the scores rounded to bf16 once and the whole softmax
   run at half width (the reference's ``scores_b``/``soft_b``).
-* ``paired16`` (K7c): both; K7b's function, bit for bit.
+* ``paired16`` (K7c): both; K7b's function, bit for bit. It runs on K3's
+  Hopper kernel (TMA ring, ``wgmma``, ``block_q`` 64 or 128) with two S
+  sets in flight, so its ratio reads pairing and the half-width softmax
+  on K3's own structure.
 
 ``experiment_flash`` takes a mode's plain version only for CPU tensors
 (``flashattn.plain_flash``, with ``bf16s=True`` for the two half-width

@@ -12,11 +12,12 @@ All five variants of the reference are ported, each to a kernel in
 with the next scores issued before the current softmax), ``bf16exp`` (K5,
 ``exp`` of a bf16 difference), and the attribution instruments
 ``softmax_stub`` and ``qk_only`` (K6a, K6b), whose numerics are wrong by
-design. K3 is built for Hopper: K/V stream through a TMA ring and both
-products run on ``wgmma``, one warpgroup per 64 query rows, so it takes
-``block_q`` 64 or 128. K4-K6b keep the synchronous ``mma.sync`` structure
-(``block_q`` a multiple of 16 up to 128). Each has a plain version below in
-torch ops that follows the reference per ``block_k`` block.
+design. K3 and K5 are built for Hopper: K/V stream through a TMA ring and
+both products run on ``wgmma``, one warpgroup per 64 query rows, so they
+take ``block_q`` 64 or 128. K4, K6a and K6b keep the synchronous
+``mma.sync`` structure (``block_q`` a multiple of 16 up to 128). Each has
+a plain version below in torch ops that follows the reference per
+``block_k`` block.
 ``flash_attention`` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the variant's kernel or raises. ``run_flashattn_breakdown``
 times the instruments and attributes K3's time to the matmuls, the softmax,
@@ -47,8 +48,10 @@ LANES = 128  # head_dim the kernel takes
 BLOCK_Q_CAP = 128
 BLOCK_K_CAP = 128
 KERNEL_KEY_TILE = 64
-KERNEL_MAX_BLOCK_Q = 128  # K4-K7c: block_q/16 warps of 16 rows, at most 8
-WGMMA_BLOCK_Q = (64, 128)  # K3: whole warpgroups
+KERNEL_MAX_BLOCK_Q = 128  # K4, K6a, K6b, K7a, K7b: block_q/16 warps of 16 rows, at most 8
+WGMMA_BLOCK_Q = (64, 128)  # the Hopper kernel's: whole warpgroups
+# the launch counters of the kernels that run on the Hopper kernel
+WGMMA_KERNELS = ("flash_fwd", "flash_fwd_bf16exp", "flash_fwd_paired16")
 
 REFERENCE_VARIANTS = ("full", "pipelined", "softmax_stub", "qk_only", "bf16exp")
 PORTED_VARIANTS = REFERENCE_VARIANTS
@@ -249,10 +252,11 @@ def flash_attention(
 
 def check_kernel_tiling(name: str, block_q: int, block_k: int) -> None:
     """Raise ``ValueError`` unless the kernel counted as ``name`` takes
-    ``(block_q, block_k)`` on the card: K3 (``flash_fwd``) ``block_q`` 64 or
-    128, the others a multiple of 16 up to 128; every kernel ``block_k`` a
-    multiple of 64. ``_launch`` calls it before any CUDA call."""
-    if name == "flash_fwd":
+    ``(block_q, block_k)`` on the card: the Hopper kernel's (K3, K5, K7c,
+    ``WGMMA_KERNELS``) ``block_q`` 64 or 128, the others a multiple of 16
+    up to 128; every kernel ``block_k`` a multiple of 64. ``_launch`` calls
+    it before any CUDA call."""
+    if name in WGMMA_KERNELS:
         q_ok, takes = block_q in WGMMA_BLOCK_Q, "block_q 64 or 128"
     else:
         q_ok = block_q > 0 and block_q % 16 == 0 and block_q <= KERNEL_MAX_BLOCK_Q
