@@ -148,6 +148,8 @@ def test_probe_cpu():
     assert res.max_err < 2e-2
     assert res.platform == "cpu" and res.tflops == 0.0  # numerics only off the card
     assert res.to_dict().keys() == ref.FlashAttnResult(True).to_dict().keys()
+    # the tiling it ran, which the payload leaves out
+    assert (res.block_q, res.block_k) == port.default_blocks(256, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("block_q,takes", [(32, False), (64, True), (128, True), (256, False)])
@@ -161,11 +163,12 @@ def test_k3_tiling_contract(block_q, takes):
             port.check_kernel_tiling("flash_fwd", block_q, 128)
 
 
-@pytest.mark.parametrize("name", ["flash_fwd_bf16exp", "flash_fwd_paired16"])
+@pytest.mark.parametrize(
+    "name", ["flash_fwd_pipelined", "flash_fwd_bf16exp", "flash_fwd_bf16s", "flash_fwd_paired16"])
 @pytest.mark.parametrize("block_q,takes", [(32, False), (64, True), (128, True), (256, False)])
 def test_hopper_variants_take_k3s_tiling_contract(name, block_q, takes):
-    """K5 and K7c run on K3's Hopper kernel, so they take its block_q 64 or
-    128, and block_k a multiple of 64."""
+    """K4, K5, K7b and K7c run on K3's Hopper kernel, so they take its
+    block_q 64 or 128, and block_k a multiple of 64."""
     if takes:
         port.check_kernel_tiling(name, block_q, 128)
     else:
@@ -175,16 +178,54 @@ def test_hopper_variants_take_k3s_tiling_contract(name, block_q, takes):
         port.check_kernel_tiling(name, 128, 96)
 
 
+SYNCHRONOUS_KERNELS = ("flash_softmax_stub", "flash_qk_only", "flash_fwd_paired")
+
+
 def test_synchronous_kernels_keep_their_tiling_contract():
-    """K4, K6a, K6b, K7a and K7b keep block_q a multiple of 16 up to 128;
-    every kernel takes block_k a multiple of 64 only."""
-    port.check_kernel_tiling("flash_fwd_pipelined", 32, 128)
+    """K6a, K6b and K7a keep block_q a multiple of 16 up to 128; every
+    kernel takes block_k a multiple of 64 only."""
+    assert not set(SYNCHRONOUS_KERNELS) & set(port.WGMMA_KERNELS)
+    assert set(SYNCHRONOUS_KERNELS) | set(port.WGMMA_KERNELS) == {
+        name for name in _build.KERNELS if name.startswith("flash_")}
+    port.check_kernel_tiling("flash_softmax_stub", 32, 128)
     port.check_kernel_tiling("flash_fwd_paired", 16, 64)
-    port.check_kernel_tiling("flash_fwd_bf16s", 32, 128)
-    for name, bq, bk in (("flash_fwd_pipelined", 144, 128), ("flash_fwd_bf16s", 24, 128),
+    port.check_kernel_tiling("flash_qk_only", 48, 128)
+    for name, bq, bk in (("flash_softmax_stub", 144, 128), ("flash_fwd_paired", 24, 128),
                          ("flash_fwd", 128, 96), ("flash_qk_only", 64, 0)):
         with pytest.raises(ValueError):
             port.check_kernel_tiling(name, bq, bk)
+
+
+# every multiple of 64 from 64 to 16384
+CARD_SEQS = range(64, 16384 + 1, 64)
+
+
+def test_card_blocks_pass_every_kernels_tiling_contract():
+    """At every seq that is a multiple of 64, the card's default blocks
+    tile seq and pass ``check_kernel_tiling`` for every flash kernel, the
+    Hopper instances and the synchronous ones."""
+    for seq in CARD_SEQS:
+        bq, bk = port.card_blocks(seq)
+        assert seq % bq == 0 and seq % bk == 0, seq
+        assert bk <= port.BLOCK_K_CAP
+        for name in port.WGMMA_KERNELS + SYNCHRONOUS_KERNELS:
+            port.check_kernel_tiling(name, bq, bk)
+
+
+def test_card_blocks_at_4160_and_their_refusal():
+    """Seq 4160 (65 x 64), where the reference's rule gives 104/104, which
+    no kernel takes, gets 64/64 on the card and keeps 104/104 on the CPU;
+    seq 8192 keeps 128/128; seq 520 (not a multiple of 64) has no tiling
+    the kernels take and raises, naming their contract."""
+    assert port.card_blocks(4160) == (64, 64)
+    assert port.card_blocks(8192) == (port.BLOCK_Q_CAP, port.BLOCK_K_CAP) == (128, 128)
+    assert port.default_blocks(4160, torch.device("cuda")) == (64, 64)
+    assert port.default_blocks(4160, torch.device("cpu")) == (104, 104)
+    assert port.default_blocks(4160, torch.device("cuda"), 128, 128) == (128, 128)
+    with pytest.raises(ValueError, match="block_q 64 or 128 and block_k a multiple of 64"):
+        port.card_blocks(520)
+    with pytest.raises(ValueError, match="block_q 64 or 128"):
+        port.default_blocks(520, torch.device("cuda"))
 
 
 def test_cpu_path_takes_any_tiling_the_reference_does():

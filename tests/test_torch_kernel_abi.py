@@ -6,7 +6,9 @@ bits by ctypes; an argument count that differs shifts every argument after
 it. Neither shows before the card."""
 
 import ctypes
+import importlib.util
 import re
+from pathlib import Path
 
 import pytest
 
@@ -129,26 +131,95 @@ def entry_body(src_name: str, entry: str) -> str:
     return text[m.end():pos - 1]
 
 
-# entry -> (its instance of the Hopper kernel's Step and PAIRED, its scale):
-# K3 works in the log2 domain, K5 and K7c on the reference's s*scale
+# entry -> (its instance of the Hopper kernel's Step and Body, its scale):
+# K3 and K4 work in the log2 domain, K5, K7b and K7c on the reference's
+# s*scale
 HOPPER_ENTRIES = {
-    "flash_fwd_bf16": ("kFull", "false", "SCALE_LOG2"),
-    "flash_fwd_bf16exp": ("kBf16Exp", "false", "SCALE"),
-    "flash_fwd_paired16": ("kBf16S", "true", "SCALE"),
+    "flash_fwd_bf16": ("kFull", "kOne", "SCALE_LOG2"),
+    "flash_fwd_pipelined": ("kFull", "kPipe", "SCALE_LOG2"),
+    "flash_fwd_bf16exp": ("kBf16Exp", "kOne", "SCALE"),
+    "flash_fwd_bf16s": ("kBf16S", "kOne", "SCALE"),
+    "flash_fwd_paired16": ("kBf16S", "kPair", "SCALE"),
 }
+LAUNCH_WGMMA = re.compile(
+    r"\s*return\s+launch_wgmma<Step::(\w+),\s*Body::(\w+),\s*\w+>\(([^;]*)\);\s*")
 
 
 @pytest.mark.parametrize("entry", sorted(HOPPER_ENTRIES))
 def test_hopper_entries_launch_through_launch_wgmma(entry):
-    """K3, K5 and K7c each launch their own instance of the Hopper kernel
-    (TMA ring, wgmma) with their scale, and nothing else."""
+    """K3, K4, K5, K7b and K7c each launch their own instance of the Hopper
+    kernel (TMA ring, wgmma) with their scale, and nothing else."""
     body = entry_body("flash.cu", entry)
-    m = re.fullmatch(
-        r"\s*return\s+launch_wgmma<Step::(\w+),\s*(true|false),\s*\w+>\(([^;]*)\);\s*", body)
+    m = LAUNCH_WGMMA.fullmatch(body)
     assert m, f"{entry} does not launch through launch_wgmma: {body!r}"
     args = [a.strip() for a in m.group(3).split(",")]
     assert (m.group(1), m.group(2), args[-2]) == HOPPER_ENTRIES[entry]
     assert args[-1] == "stream"
+
+
+def enum_values(src_name: str, enum: str) -> dict:
+    """``enum class NAME { a, b, ... };`` of one ``csrc`` file: member ->
+    its value, as the mangled name of a template instance spells it."""
+    text = _strip_comments((_build.CSRC / src_name).read_text())
+    m = re.search(r"enum\s+class\s+" + enum + r"\s*\{([^}]*)\}", text)
+    assert m, f"no enum class {enum} in {src_name}"
+    members = [a.strip() for a in m.group(1).split(",") if a.strip()]
+    assert all(re.fullmatch(r"\w+", a) for a in members), members  # no explicit values
+    return {name: str(i) for i, name in enumerate(members)}
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_expects_the_instances_the_entries_launch():
+    """``chip_smoke.WGMMA_INSTANCES`` (the instances its SASS check must
+    find, by the enum values of the mangled name) names exactly the
+    (Step, Body) of every C entry that launches the Hopper kernel, and
+    its regex reads them from such a name."""
+    steps, bodies = enum_values("flash.cu", "Step"), enum_values("flash.cu", "Body")
+    launched = set()
+    for entry in c_entries():
+        if entry.startswith("flash_"):
+            m = LAUNCH_WGMMA.fullmatch(entry_body("flash.cu", entry))
+            if m:
+                launched.add((steps[m.group(1)], bodies[m.group(2)]))
+    smoke = _chip_smoke()
+    assert set(smoke.WGMMA_INSTANCES) == launched
+    assert len(set(smoke.WGMMA_INSTANCES.values())) == len(launched)
+    # the start of the Itanium mangled name of
+    # flash_fwd_wgmma_kernel<Step::kFull, Body::kPipe, 4> (the anonymous namespace's)
+    name = "_ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILNS_4StepE0ELNS_4BodyE2ELi4EEEv"
+    args = smoke.WGMMA_NAME_ARGS.search(name).groups()
+    assert args == (steps["kFull"], bodies["kPipe"]) and smoke.WGMMA_INSTANCES[args] == "K4"
+
+
+def _unmasked_subtiles(seq: int, block_q: int, block_k: int, kt: int) -> set:
+    """The unmasked sub-tile counts of a causal run's q-blocks, as
+    ``flash_fwd_wgmma_kernel`` computes ``n_unmasked``."""
+    return {(i * block_q) // block_k * (block_k // kt) for i in range(seq // block_q)}
+
+
+@pytest.mark.parametrize("kernels", ["K4", "K7a/K7c"])
+def test_chip_smoke_reaches_both_exits_of_the_two_s_bodies(kernels):
+    """K4's pipelined loop and K7a's/K7c's pair loop leave one way after
+    an even count of unmasked sub-tiles and another after an odd one;
+    the card check of each must run q-blocks with an even count of 2 or
+    more and an odd count of 3 or more."""
+    smoke, kt = _chip_smoke(), constants("flash.cu")["KT"]
+    shapes = {
+        "K4": smoke.VARIANT_TEST_SHAPES + smoke.HOPPER_VARIANT_SHAPES,
+        "K7a/K7c": smoke.STRUCTURAL_TEST_SHAPES,
+    }[kernels]
+    counts = set().union(*(
+        _unmasked_subtiles(seq, bq, bk, kt) for _, seq, bq, bk, causal in shapes if causal
+    ))
+    assert any(n >= 2 and n % 2 == 0 for n in counts), counts
+    assert any(n >= 3 and n % 2 for n in counts), counts
 
 
 def test_error_string_is_bound(bound):

@@ -8,10 +8,10 @@
 // running max m and denominator l in f32, p cast to bf16 for p.v
 // accumulated in f32, causal loop stopped at diag_stop(i) with only the
 // diagonal tail masked, output acc/l in bf16.
-// K4 flash_fwd_pipelined replaces variant "pipelined" (flashattn.py:209):
-// the same function, with the scores of the next sub-tile issued before
-// the softmax and PV of the current one over the unmasked range, then a
-// drain, then the masked tail as K3 runs it.
+// K4 flash_fwd_pipelined replaces variant "pipelined" (flashattn.py:209,
+// pipe_body): the same function, with the scores of the next sub-tile
+// issued before the softmax and PV of the current one over the unmasked
+// range, then a drain, then the masked tail as K3 runs it.
 // K5 flash_fwd_bf16exp replaces variant "bf16exp" (flashattn.py:153): as
 // K3, but p = exp(bf16(s - m_new)) rounded to bf16, with the difference in
 // natural-log units (s = q.k^T*scale rounded as the reference's product is,
@@ -24,23 +24,39 @@
 // k-block j < hi, unmasked, acc += (q.k^T*scale)[:, :128], the scores of
 // the block's first 128 keys; output bf16(acc). V is never read.
 //
+// K7, the structural-variant instrument (tpu_operator_torch/workloads/
+// fa_experiment.py), replaces the three modes of build() in
+// scripts/fa_experiment.py (pallas_call at :133), all causal:
+// K7a flash_fwd_paired replaces "paired" (:90-108): K3's function with
+// sub-tiles paired over the unmasked range.
+// K7b flash_fwd_bf16s replaces "bf16s" (scores_b/soft_b, :52-67): the
+// scores rounded to bf16 once, s_b = bf16(s*scale); m = max(m, rowmax s_b)
+// kept in f32, natural-log units; p = exp(s_b - bf16(m)) in bf16; l sums p
+// in f32; the masked tail is bf16 -inf. Its softmax runs on packed
+// __nv_bfloat162 pairs (the S fragment's (e0, e1) and (e2, e3) are
+// adjacent columns of rows g and g+8): __hmax2 for the row max, __hsub2
+// and h2exp for p, and the packed p is the PV A fragment as it stands.
+// K7c flash_fwd_paired16 replaces "paired16" (:69-89): K7b's softmax in
+// K7a's pairing, so it equals K7b.
+//
 // Bound on an H100: operations. At the probe's shape (8 x 8192 x 128,
 // causal) the two products are ~1.4e11 FLOPs against 67 MB of inputs and
 // output, some 2000 FLOPs a byte, far above the ~295 at which bf16 tensor
-// cores rather than memory set the pace: 0.139 ms at 989 TFLOPS. The instruments are bound the
-// same way: K6a does both products over the causal tiling (1.4e11 FLOPs),
-// K6b half of them.
+// cores rather than memory set the pace: 0.139 ms at 989 TFLOPS. The
+// instruments are bound the same way: K6a does both products over the
+// causal tiling (1.4e11 FLOPs), K6b half of them.
 //
-// The Hopper kernel (flash_fwd_wgmma_kernel<STEP, PAIRED, STAGES>), three
-// instances: K3 <kFull, false, 2>, K5 <kBf16Exp, false, 2> and K7c
-// <kBf16S, true, 4>. What bound the first K3 (the synchronous design below)
-// was its staging and its products: every 64-key sub-tile was staged by
-// 16-byte loads between two block barriers with no product running, at one
-// 256-thread block per SM, and both products ran on mma.sync, which cannot
-// reach the tensor cores' rate. K5 and K7c are K3's function with another
-// softmax, so they lost the same way (on an H100, 4.9-5.6x the time of
-// PyTorch's scaled_dot_product_attention against K3's 1.46x) and take K3's
-// design with their own softmax step:
+// The Hopper kernel (flash_fwd_wgmma_kernel<STEP, BODY, STAGES>), five
+// instances: K3 <kFull, kOne, 2>, K5 <kBf16Exp, kOne, 2>, K7b <kBf16S,
+// kOne, 2>, K7c <kBf16S, kPair, 4> and K4 <kFull, kPipe, 3>. STEP is the
+// softmax, BODY the loop over the unmasked range. What bound the first K3
+// (the synchronous design below) was its staging and its products: every
+// 64-key sub-tile was staged by 16-byte loads between two block barriers
+// with no product running, at one 256-thread block per SM, and both
+// products ran on mma.sync, which cannot reach the tensor cores' rate.
+// The other four are K3's function or K3's with another softmax, so they
+// lost the same way (on an H100, 4.7-5.6x the time of PyTorch's
+// scaled_dot_product_attention against K3's 1.46x) and take K3's design:
 // - Host: a tensor map per Q, K, V over (heads*seq, 128) bf16 with 64 x 64
 //   boxes (one box row is 128 B) and 128-byte swizzle, D = 128 taking two
 //   boxes; cuTensorMapEncodeTiled is reached through the runtime
@@ -52,11 +68,12 @@
 //   and keeps K/V in a ring of STAGES stages of 64 keys, each behind a
 //   "full" mbarrier (expect_tx); the stage of sub-tile j is refilled with
 //   j+STAGES once every warp has arrived on its "empty" mbarrier, after
-//   j's PV, so later sub-tiles load while j is computed. K3 and K5 have two
-//   stages: at 1 KB + 2 x 32 KB + 32 KB = 97 KB of shared memory and 126
-//   registers two 256-thread blocks share an SM, so one block's warpgroups
-//   run their products while the other's run the softmax; a third stage
-//   leaves room for one block and measured slower on the H100.
+//   j's PV, so later sub-tiles load while j is computed. The kOne
+//   instances have two stages: at 1 KB + 2 x 32 KB + 32 KB = 97 KB of
+//   shared memory and at most 128 registers two 256-thread blocks share an
+//   SM, so one block's warpgroups run their products while the other's run
+//   the softmax; a third stage leaves room for one block and measured
+//   slower on the H100.
 // - S = Q.K^T: eight wgmma m64n64k16 over D, Q and the K stage both
 //   K-major from shared memory by descriptor (SBO 1024 B, a k16 step 32 B
 //   inside the swizzled row, the fifth step in the second box). PV: four
@@ -65,12 +82,13 @@
 //   second box of D, SBO 1024 B to the next 8 keys).
 // - A warp's slice of a wgmma m64nN f32 accumulator is the mma.sync m16n8
 //   C layout repeated over N/8, so each instance's softmax is the
-//   synchronous kernels' own (softmax_step): K3 online_softmax<false> (log2
-//   domain, scale*log2e, the masked-row guard); K5 online_softmax<true>
-//   (the reference's s*scale, p = bf16(exp(bf16(s - m_new))) already bf16,
-//   so packing it is exact); K7c scores_b then softmax_b, whose packed p
-//   pairs are the A fragment as they stand. No generic-proxy write reaches
-//   the shared memory that TMA and wgmma use, so no proxy fence is needed.
+//   synchronous kernels' own (softmax_step): kFull online_softmax<false>
+//   (log2 domain, scale*log2e, the masked-row guard); kBf16Exp
+//   online_softmax<true> (the reference's s*scale, p = bf16(exp(bf16(s -
+//   m_new))) already bf16, so packing it is exact); kBf16S scores_b then
+//   softmax_b, whose packed p pairs are the A fragment as they stand. No
+//   generic-proxy write reaches the shared memory that TMA and wgmma use,
+//   so no proxy fence is needed.
 // - The logical tiling is the caller's (block_q, block_k) as on the TPU: a
 //   causal q-block processes k-blocks [0, diag_stop(i)), the first n_full =
 //   i*block_q/block_k without a mask and the rest masked, so the FLOPs
@@ -78,12 +96,13 @@
 //   heavier causal q-blocks are scheduled first. The ring runs over the
 //   sub-tiles of every range with one counter, so its stage and parity
 //   carry over from one loop into the next.
-// - K3's body, per sub-tile: S, wait, softmax, PV, wait. PV is waited for
-//   at the end: a wgmma chain in flight whose accumulators another
-//   instruction defines is serialized by ptxas (C7515), so every register a
-//   chain in flight reads or writes is final before wgmma.fence, with
-//   fence_regs after each wait.
-// - K7c's pair body (the reference's body2), over the unmasked range two
+// - kOne, K3's body, per sub-tile: S, wait, softmax, PV, wait. PV is
+//   waited for at the end: a wgmma chain in flight whose accumulators
+//   another instruction defines is serialized by ptxas (C7515), so every
+//   register a chain in flight reads or writes is final before
+//   wgmma.fence, with fence_regs after each wait. Every body runs the
+//   masked tail (and what its own loop leaves) on this one.
+// - kPair, K7c's body (the reference's body2), over the unmasked range two
 //   sub-tiles kt, kt+1 at a time with two S accumulator sets: S_a issued
 //   and committed, S_b issued (behind a wgmma.fence of its own) and
 //   committed, wgmma.wait_group 1 so S_a has landed, softmax_a while S_b
@@ -94,63 +113,52 @@
 //   the masked tail run K3's body: the reference's body1 and tail. K7c
 //   rounds each S set to bf16 as its softmax starts (lazy rounding); the
 //   reference rounds both before either softmax, the same values in
-//   another order of issue. Per element its arithmetic is the synchronous
-//   K7b's, in the same k16 steps in the same order.
+//   another order of issue.
+// - kPipe, K4's body (the reference's pipe_body), over the unmasked range
+//   one sub-tile at a time with the next S carried across iterations: S(kt)
+//   has landed; S(kt+1) is issued into the other S set and runs on the
+//   tensor cores while kt's softmax does; then PV(kt); wait_group 0 lands
+//   both. Register arrays cannot be indexed at run time, so the loop is
+//   unrolled by two with the sets alternating. The last unmasked sub-tile
+//   (the drain, its S landed already) and the masked tail run K3's body.
+//   Like K7c it holds two S sets (183 registers), so one block an SM. Its
+//   ring keeps kt+1 resident while PV(kt) runs and has kt+2 loading by
+//   then, which takes three stages (129 KB): with two, the load of kt+2
+//   starts only once PV(kt) lands and S(kt+2) waits on it (K3/K4 0.74 on
+//   the H100); three measured faster than four (1.076 against 1.041).
+// Each instance does, per element, the arithmetic of its synchronous
+// predecessor in the same k16 steps in the same order, so K4 equals K3
+// and K7c equals K7b bit for bit.
 // Not done yet: warp specialisation (a producer warp, setmaxnreg), the next
-// S product overlapped with the current softmax in K3 (K4's structure),
-// persistent blocks, clusters and multicast. In K3 and K5 the softmax still
-// runs between the two products with the tensor cores idle.
+// S product overlapped with the current softmax in K3 itself (K4's body at
+// two blocks an SM), persistent blocks, clusters and multicast. In the kOne
+// instances the softmax still runs between the two products with the
+// tensor cores idle, hidden only by a second block on the SM.
 //
-// The synchronous design (K4, K6a, K6b, K7a, K7b, and K3, K5 and K7c
-// before): one block per (q-block, head) with block_q/16 warps; each warp
-// owns 16 query rows. A warp keeps its Q rows in registers as mma.sync A
-// fragments for the whole kernel, and its f32 accumulator (16 x 128), m and
-// l in registers. K and V stream through shared memory in 64-key sub-tiles
-// (rows padded to 136 bf16 so the fragment reads hit 32 distinct banks).
-// Both products run on tensor cores as mma.sync m16n8k16 bf16 with f32
-// accumulation; the S accumulator's layout is the PV A-fragment's layout,
-// so p goes from registers to the second product without shared memory.
-// The tiling, n_full, diag_stop and the order of q-blocks are K3's. The
-// online-softmax update runs per 64-key sub-tile; the result is the same
-// function up to the order of f32 sums and where p is rounded to bf16.
-//
-// K6a, K6b and K7b are one kernel template (flash_fwd_kernel) with a
-// different step per sub-tile. The stubs run every sub-tile of [0, hi)
-// unmasked; K6b stages only K and adds the scores of sub-tiles 0 and 1 of
-// each k-block into accumulator n-tiles 0-7 and 8-15 (the same fragment
-// layout), while the score products of the block's other sub-tiles still
-// run (mma16816 is asm volatile).
-// K4 is a kernel of its own because its loop differs: K_{j+1} and V_j are
-// resident together, so it keeps two stages of K and V in dynamic shared
-// memory (4 x 64 x 136 x 2 B = 69,632 B, above the 48 KB of static shared
-// memory) and two S fragment sets; its loads stay the synchronous 16-byte
-// stores, so it isolates the reordering against the synchronous K3.
-// Per element its arithmetic is K3's, through the same device
-// functions, and its output has matched the Hopper K3's bit for bit at
-// every shape checked on the H100 (the two take the same k16 steps in the
-// same order).
-//
-// K7, the structural-variant instrument (tpu_operator_torch/workloads/
-// fa_experiment.py), replaces the three modes of build() in
-// scripts/fa_experiment.py (pallas_call at :133), all causal:
-// K7b flash_fwd_bf16s replaces "bf16s" (scores_b/soft_b, :52-67): the
-// scores rounded to bf16 once, s_b = bf16(s*scale); m = max(m, rowmax s_b)
-// kept in f32, natural-log units; p = exp(s_b - bf16(m)) in bf16; l sums p
-// in f32; the masked tail is bf16 -inf. It is a Step of flash_fwd_kernel
-// whose softmax runs on packed __nv_bfloat162 pairs (the S fragment's
-// (e0, e1) and (e2, e3) are adjacent columns of rows g and g+8): __hmax2
-// for the row max, __hsub2 and h2exp for p, and the packed p is the PV A
-// fragment as it stands, with no pack_bf16.
-// K7a flash_fwd_paired replaces "paired" (:90-108): K3's step in a loop
-// that pairs sub-tiles over the unmasked range. The reference pairs
-// k-blocks, its unit of update; the port's unit is the 64-key sub-tile, so
-// one stage call fills two sub-tiles of K and V (69,632 B of dynamic shared
-// memory, as K4) behind one pair of barriers, both score products are
-// issued, then softmax+PV runs on the first S set and on the second. An
-// odd leftover sub-tile runs alone, then the masked tail as K3 runs it.
-// Per element the arithmetic is K3's, so K7a equals K3.
-// K7c flash_fwd_paired16 replaces "paired16" (:69-89) on the Hopper kernel
-// (above): K7b's softmax in the pair body, so it equals K7b.
+// The synchronous design (K6a, K6b, K7a; and every other kernel before
+// it moved to the Hopper kernel): one block per (q-block, head) with
+// block_q/16 warps; each warp owns 16 query rows. A warp keeps its Q rows
+// in registers as mma.sync A fragments for the whole kernel, and its f32
+// accumulator (16 x 128), m and l in registers. K and V stream through
+// shared memory in 64-key sub-tiles (rows padded to 136 bf16 so the
+// fragment reads hit 32 distinct banks). Both products run on tensor cores
+// as mma.sync m16n8k16 bf16 with f32 accumulation; the S accumulator's
+// layout is the PV A-fragment's layout, so p goes from registers to the
+// second product without shared memory. The tiling, n_full, diag_stop and
+// the order of q-blocks are K3's.
+// K6a and K6b are one kernel template (flash_fwd_kernel) with a different
+// step per sub-tile. Both run every sub-tile of [0, hi) unmasked; K6b
+// stages only K and adds the scores of sub-tiles 0 and 1 of each k-block
+// into accumulator n-tiles 0-7 and 8-15 (the same fragment layout), while
+// the score products of the block's other sub-tiles still run (mma16816 is
+// asm volatile).
+// K7a (flash_fwd_paired_kernel) pairs sub-tiles over the unmasked range.
+// The reference pairs k-blocks, its unit of update; the port's unit is the
+// 64-key sub-tile, so one stage call fills two sub-tiles of K and V
+// (69,632 B of dynamic shared memory) behind one pair of barriers, both
+// score products are issued, then softmax+PV runs on the first S set and
+// on the second. An odd leftover sub-tile runs alone, then the masked tail
+// as K3 runs it. Per element the arithmetic is K3's, so K7a equals K3.
 
 #include <cuda.h>  // CUtensorMap and its enums, for the tensor maps
 #include <cuda_bf16.h>
@@ -168,7 +176,7 @@ constexpr int LDS = D + 8;    // padded shared row, in bf16 elements
 constexpr int MAX_WARPS = 8;  // block_q <= 128
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float STUB_SCALE = 0.001f;  // softmax_stub's p = bf16((s*scale)*0.001)
-constexpr int PIPE_SMEM = 4 * KT * LDS * 2;  // K4, K7a: two stages of K and V, bytes
+constexpr int PIPE_SMEM = 4 * KT * LDS * 2;  // K7a: two sub-tiles of K and V, bytes
 
 enum class Step { kFull, kBf16Exp, kStub, kQkOnly, kBf16S };
 
@@ -264,7 +272,7 @@ __device__ __forceinline__ void pv(const float (&p)[KT / 8][4],
 // log2 domain. BF16EXP true (K5): scale is 1/sqrt(D), m is in natural-log
 // units, p = bf16(exp(bf16(s - m_new))) and l sums that p. The fragment
 // layout is mma.sync's m16n8 C layout, which is also a warp's slice of a
-// wgmma m64nN accumulator, so the Hopper kernel (K3, K5) runs this step as
+// wgmma m64nN accumulator, so the Hopper kernel (K3, K4, K5) runs this step as
 // it is.
 template <bool BF16EXP, bool MASKED>
 __device__ __forceinline__ void online_softmax(float (&s)[KT / 8][4], float (&acc)[D / 8][4],
@@ -321,7 +329,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[KT / 8][4], float (&ac
   }
 }
 
-// K3's online_softmax, then acc += bf16(p) . V on mma.sync (K4, K7a).
+// K3's online_softmax, then acc += bf16(p) . V on mma.sync (K7a).
 template <bool MASKED>
 __device__ __forceinline__ void softmax_pv(float (&s)[KT / 8][4],
                                            const __nv_bfloat16* __restrict__ Vs,
@@ -332,7 +340,7 @@ __device__ __forceinline__ void softmax_pv(float (&s)[KT / 8][4],
   pv(s, Vs, acc, lane);
 }
 
-// K7b's scores_b on packed bf16 pairs: sb[nt][r] = bf16(s*scale) of row
+// K7b's and K7c's scores_b on packed bf16 pairs: sb[nt][r] = bf16(s*scale) of row
 // g + 8r, columns 2t and 2t+1 of n-tile nt, with bf16 -inf where MASKED
 // hides a key.
 template <bool MASKED>
@@ -357,7 +365,7 @@ __device__ __forceinline__ void scores_b(const float (&s)[KT / 8][4], uint32_t (
   }
 }
 
-// The softmax of K7b's soft_b on the packed scores sb: m_new = max(m,
+// The softmax of the reference's soft_b (K7b, K7c) on the packed scores sb: m_new = max(m,
 // rowmax s_b) in f32, natural-log units; alpha = exp(m - m_new) in f32;
 // sb becomes p = exp(s_b - bf16(m_new)) in bf16; l = alpha*l + sum_f32 p;
 // acc is rescaled by alpha. The packed p is the PV A fragment as it stands.
@@ -399,36 +407,6 @@ __device__ __forceinline__ void softmax_b(uint32_t (&sb)[KT / 8][2], float (&acc
     acc[nt][1] *= alpha[0];
     acc[nt][2] *= alpha[1];
     acc[nt][3] *= alpha[1];
-  }
-}
-
-// K7b's soft_b: softmax_b, then acc += p.v on mma.sync with p as it is as
-// the A fragment.
-__device__ __forceinline__ void soft_b(uint32_t (&sb)[KT / 8][2],
-                                       const __nv_bfloat16* __restrict__ Vs,
-                                       float (&acc)[D / 8][4], float (&m)[2], float (&l)[2],
-                                       int lane) {
-  softmax_b(sb, acc, m, l);
-#pragma unroll
-  for (int kk = 0; kk < KT / 16; ++kk) {
-    const uint32_t pa[4] = {sb[2 * kk][0], sb[2 * kk][1], sb[2 * kk + 1][0], sb[2 * kk + 1][1]};
-    pv_slice(pa, kk, Vs, acc, lane);
-  }
-}
-
-// The online-softmax + PV step of the synchronous attention variants: K3's
-// (K7a) or K7b's.
-template <Step STEP, bool MASKED>
-__device__ __forceinline__ void attend(float (&s)[KT / 8][4],
-                                       const __nv_bfloat16* __restrict__ Vs,
-                                       float (&acc)[D / 8][4], float (&m)[2], float (&l)[2],
-                                       float scale, int qrow, int k0, int lane) {
-  if constexpr (STEP == Step::kBf16S) {
-    uint32_t sb[KT / 8][2];
-    scores_b<MASKED>(s, sb, scale, qrow, k0, lane);
-    soft_b(sb, Vs, acc, m, l, lane);
-  } else {
-    softmax_pv<MASKED>(s, Vs, acc, m, l, scale, qrow, k0, lane);
   }
 }
 
@@ -491,12 +469,13 @@ __device__ __forceinline__ void finish_l(float (&l)[2]) {
   }
 }
 
-// K6a, K6b, K7b; scale is 1/sqrt(D).
+// K6a, K6b; scale is 1/sqrt(D).
 template <Step STEP>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                  int seq, int block_q, int block_k, int causal, float scale) {
+  static_assert(STEP == Step::kStub || STEP == Step::kQkOnly, "the stubs only");
   constexpr bool QK = STEP == Step::kQkOnly;
   __shared__ __align__(16) __nv_bfloat16 Ks[KT * LDS];
   __shared__ __align__(16) __nv_bfloat16 Vs[QK ? 8 : KT * LDS];
@@ -517,118 +496,37 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   float s[KT / 8][4];
 
-  // diag_stop(i) and n_full, in k-blocks, as the TPU kernel computes them
+  // diag_stop(i), in k-blocks, as the TPU kernel computes it
   const int hi = causal ? ((i + 1) * block_q + block_k - 1) / block_k : seq / block_k;
-  const int n_full = causal ? (i * block_q) / block_k : hi;
   const int sub = block_k / KT;
 
-  if constexpr (STEP == Step::kStub || QK) {
-    // the instruments: every sub-tile of [0, hi) with no mask, no m, no l
-    for (int kt = 0; kt < hi * sub; ++kt) {
-      stage<!QK>(k, v, Ks, Vs, kt * KT);
-      scores(qa, Ks, s, lane);
-      if constexpr (QK) {
-        const int part = kt % sub;  // 0, 1: the block's first 128 keys
-        if (part == 0) {
-#pragma unroll
-          for (int nt = 0; nt < KT / 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[nt][e] += __fmul_rn(s[nt][e], scale);
-        } else if (part == 1) {
-#pragma unroll
-          for (int nt = 0; nt < KT / 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[KT / 8 + nt][e] += __fmul_rn(s[nt][e], scale);
-        }
-      } else {
+  // every sub-tile of [0, hi) with no mask, no m, no l
+  for (int kt = 0; kt < hi * sub; ++kt) {
+    stage<!QK>(k, v, Ks, Vs, kt * KT);
+    scores(qa, Ks, s, lane);
+    if constexpr (QK) {
+      const int part = kt % sub;  // 0, 1: the block's first 128 keys
+      if (part == 0) {
 #pragma unroll
         for (int nt = 0; nt < KT / 8; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = (s[nt][e] * scale) * STUB_SCALE;
-        pv(s, Vs, acc, lane);
-      }
-    }
-    const float one[2] = {1.f, 1.f};
-    store_out(o, qrow, acc, one, lane);
-  } else {
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    for (int kt = 0; kt < n_full * sub; ++kt) {  // below the diagonal: no mask
-      stage(k, v, Ks, Vs, kt * KT);
-      scores(qa, Ks, s, lane);
-      attend<STEP, false>(s, Vs, acc, m, l, scale, qrow, kt * KT, lane);
-    }
-    for (int kt = n_full * sub; kt < hi * sub; ++kt) {  // the diagonal tail
-      stage(k, v, Ks, Vs, kt * KT);
-      scores(qa, Ks, s, lane);
-      attend<STEP, true>(s, Vs, acc, m, l, scale, qrow, kt * KT, lane);
-    }
-    finish_l(l);
-    store_out(o, qrow, acc, l, lane);
-  }
-}
-
-// K4: K3 with the scores of sub-tile j+1 issued before the softmax and PV
-// of sub-tile j over the unmasked range; two stages (buffers 0 and 1, by
-// the sub-tile's parity) of K and V in dynamic shared memory, two S sets.
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-flash_fwd_pipelined_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                           int seq, int block_q, int block_k, int causal, float scale_log2) {
-  extern __shared__ uint4 smem_raw[];  // 16-byte aligned
-  __nv_bfloat16* const smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* const Ks0 = smem;
-  __nv_bfloat16* const Vs0 = smem + KT * LDS;
-  __nv_bfloat16* const Ks1 = smem + 2 * KT * LDS;
-  __nv_bfloat16* const Vs1 = smem + 3 * KT * LDS;
-
-  const int i = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const size_t head = (size_t)blockIdx.y * seq * D;
-  q += head;
-  k += head;
-  v += head;
-  o += head;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int qrow = i * block_q + warp * 16 + (lane >> 2);
-
-  uint32_t qa[D / 16][4];
-  load_q(q, qrow, qa, lane);
-  float acc[D / 8][4];
+          for (int e = 0; e < 4; ++e) acc[nt][e] += __fmul_rn(s[nt][e], scale);
+      } else if (part == 1) {
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float sa[KT / 8][4], sb[KT / 8][4];  // S of the even and the odd sub-tile
-
-  const int hi = causal ? ((i + 1) * block_q + block_k - 1) / block_k : seq / block_k;
-  const int n_full = causal ? (i * block_q) / block_k : hi;
-  const int sub = block_k / KT;
-  const int nf = n_full * sub;  // unmasked sub-tiles
-
-  if (nf > 0) {
-    stage(k, v, Ks0, Vs0, 0);
-    scores(qa, Ks0, sa, lane);
-  }
-  for (int kt = 0; kt < nf; kt += 2) {
-    // sa holds S of sub-tile kt (buffer 0); issue kt+1's scores first
-    if (kt + 1 < nf) {
-      stage(k, v, Ks1, Vs1, (kt + 1) * KT);
-      scores(qa, Ks1, sb, lane);
+        for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[KT / 8 + nt][e] += __fmul_rn(s[nt][e], scale);
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = (s[nt][e] * scale) * STUB_SCALE;
+      pv(s, Vs, acc, lane);
     }
-    softmax_pv<false>(sa, Vs0, acc, m, l, scale_log2, qrow, kt * KT, lane);
-    if (kt + 1 >= nf) break;  // drained
-    if (kt + 2 < nf) {
-      stage(k, v, Ks0, Vs0, (kt + 2) * KT);
-      scores(qa, Ks0, sa, lane);
-    }
-    softmax_pv<false>(sb, Vs1, acc, m, l, scale_log2, qrow, (kt + 1) * KT, lane);
   }
-  for (int kt = nf; kt < hi * sub; ++kt) {  // the diagonal tail, not pipelined
-    stage(k, v, Ks0, Vs0, kt * KT);
-    scores(qa, Ks0, sa, lane);
-    softmax_pv<true>(sa, Vs0, acc, m, l, scale_log2, qrow, kt * KT, lane);
-  }
-  finish_l(l);
-  store_out(o, qrow, acc, l, lane);
+  const float one[2] = {1.f, 1.f};
+  store_out(o, qrow, acc, one, lane);
 }
 
 // K7a (K3's step, scale*log2e): over the unmasked range, pairs of
@@ -639,7 +537,6 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_fwd_paired_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                         int seq, int block_q, int block_k, int causal, float scale) {
-  constexpr Step STEP = Step::kFull;
   extern __shared__ uint4 smem_raw[];  // 16-byte aligned
   __nv_bfloat16* const Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* const Vs = Ks + 2 * KT * LDS;
@@ -671,30 +568,35 @@ flash_fwd_paired_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     stage<true, 2 * KT>(k, v, Ks, Vs, kt * KT);
     scores(qa, Ks, sa, lane);
     scores(qa, Ks + KT * LDS, sb, lane);
-    attend<STEP, false>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
-    attend<STEP, false>(sb, Vs + KT * LDS, acc, m, l, scale, qrow, (kt + 1) * KT, lane);
+    softmax_pv<false>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
+    softmax_pv<false>(sb, Vs + KT * LDS, acc, m, l, scale, qrow, (kt + 1) * KT, lane);
   }
   if (kt < nf) {  // body1: the odd leftover
     stage(k, v, Ks, Vs, kt * KT);
     scores(qa, Ks, sa, lane);
-    attend<STEP, false>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
+    softmax_pv<false>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
     ++kt;
   }
   for (; kt < hi * sub; ++kt) {  // the diagonal tail
     stage(k, v, Ks, Vs, kt * KT);
     scores(qa, Ks, sa, lane);
-    attend<STEP, true>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
+    softmax_pv<true>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
   }
   finish_l(l);
   store_out(o, qrow, acc, l, lane);
 }
 
 // ---------------------------------------------------------------------------
-// The Hopper kernel (K3, K5, K7c): a TMA ring of K/V sub-tiles and both
-// products on wgmma.
+// The Hopper kernel (K3, K4, K5, K7b, K7c): a TMA ring of K/V sub-tiles
+// and both products on wgmma.
 
-constexpr int K3_STAGES = 2;                 // K/V stages in K3's and K5's ring
+// The loop over the unmasked range: one sub-tile a trip (K3, K5, K7b), two
+// with two S sets (K7c), or one with the next S carried across trips (K4).
+enum class Body { kOne, kPair, kPipe };
+
+constexpr int K3_STAGES = 2;                 // K/V stages in the kOne instances' ring
 constexpr int K7C_STAGES = 4;                // K7c's: a pair holds two at once
+constexpr int K4_STAGES = 3;                 // K4's: kt+1 resident under PV(kt), kt+2 loading
 constexpr int BOX_COLS = 64;                 // a TMA box: 64 bf16 = one 128-byte swizzled row
 constexpr int HALF_BYTES = KT * BOX_COLS * 2;  // one 64 x 64 box: 8 KB
 constexpr int TILE_BYTES = 2 * HALF_BYTES;   // 64 rows x D: two boxes, 16 KB
@@ -848,7 +750,7 @@ __device__ __forceinline__ void pv_wgmma(const uint32_t (&pa)[KT / 16][4], uint3
 // rescaled, and s (the sub-tile's raw dot products) becomes p. kFull (K3):
 // online_softmax in the log2 domain, p left in s in f32. kBf16Exp (K5):
 // online_softmax on the reference's s*scale, p left in s already rounded
-// to bf16. kBf16S (K7c): scores_b, rounded as the softmax starts (lazy
+// to bf16. kBf16S (K7b, K7c): scores_b, rounded as the softmax starts (lazy
 // rounding), then softmax_b, whose packed p pairs are written to pa, the
 // PV A fragments, as they stand.
 template <Step STEP, bool MASKED>
@@ -873,7 +775,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[KT / 8][4], uint32_t (&p
 }
 
 // p's A fragments after softmax_step: K3's and K5's p packed from s (K5's
-// exactly, it is bf16 already); K7c's are in pa. Packing once after the
+// exactly, it is bf16 already); K7b's and K7c's are in pa. Packing once after the
 // masked/unmasked branch, not in each, keeps K3 at 126 registers (138
 // otherwise, which leaves one block an SM).
 template <Step STEP>
@@ -882,17 +784,20 @@ __device__ __forceinline__ void pack_step(const float (&s)[KT / 8][4],
   if constexpr (STEP != Step::kBf16S) pack_p(s, pa);
 }
 
-// K3 <kFull, false, K3_STAGES>, K5 <kBf16Exp, false, K3_STAGES> and K7c
-// <kBf16S, true, K7C_STAGES>. Dynamic shared memory, 1024-aligned: STAGES
+// K3 <kFull, kOne, K3_STAGES>, K5 <kBf16Exp, kOne, K3_STAGES>, K7b
+// <kBf16S, kOne, K3_STAGES>, K7c <kBf16S, kPair, K7C_STAGES> and K4 <kFull,
+// kPipe, K4_STAGES>. Dynamic shared memory, 1024-aligned: STAGES
 // K tiles, STAGES V tiles, then Q (one 16 KB tile per warpgroup). Thread 0
 // drives the ring: it loads Q and the first STAGES sub-tiles, and refills
 // the stage of sub-tile j with j+STAGES once every warp has arrived on that
 // stage's "empty" barrier (release(j)). A warp arrives once its PV of j
-// has been waited for and its next S is issued (K3's body: has landed).
-// PAIRED (K7c) runs the unmasked range two sub-tiles a body with two S
+// has been waited for and its next S is issued (kOne: has landed).
+// kPair (K7c) runs the unmasked range two sub-tiles a body with two S
 // accumulator sets: S_a and S_b are issued, S_b runs on the tensor cores
-// while softmax_a runs, then PV_a, then softmax_b and PV_b.
-template <Step STEP, bool PAIRED, int STAGES>
+// while softmax_a runs, then PV_a, then softmax_b and PV_b. kPipe (K4)
+// runs it one sub-tile a trip, S of the next on the tensor cores while
+// this one's softmax runs, then its PV.
+template <Step STEP, Body BODY, int STAGES>
 __global__ void __launch_bounds__(MAX_WG * 128, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
@@ -964,10 +869,20 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   float s[KT / 8][4];
   uint32_t pa[KT / 16][4];
   const uint32_t q_tile = q_tiles + wg * TILE_BYTES;
+  // dst = S of sub-tile j, landed (K3's body, K4's prologue)
+  auto scores_landed = [&](float (&dst)[KT / 8][4], int j) {
+    const int st = j % STAGES;
+    mbar_wait(smem_u32(&full[st]), (j / STAGES) & 1);
+    wgmma_fence();
+    qk_wgmma(dst, q_tile, k_tiles + st * TILE_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dst);
+  };
   mbar_wait(smem_u32(&qbar), 0);
 
   int kt = 0;
-  if constexpr (PAIRED) {
+  if constexpr (BODY == Body::kPair) {
     float s2[KT / 8][4];  // S of the pair's second sub-tile
     for (; kt + 1 < n_unmasked; kt += 2) {  // below the diagonal, two at a time
       const int sta = kt % STAGES, stb = (kt + 1) % STAGES;
@@ -1005,17 +920,52 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_wait<0>();
       fence_regs(acc);
     }
+  } else if constexpr (BODY == Body::kPipe) {
+    float s2[KT / 8][4];  // the other S set: S(j+1) while j's softmax runs
+    // One sub-tile j of the unmasked range: S(j) has landed in cur. S(j+1)
+    // is issued into nxt and runs on the tensor cores while j's softmax
+    // does, then PV(j); one wait lands both. Nothing writes nxt while it
+    // is in flight, and acc is final before PV's fence (no C7515).
+    auto pipe_step = [&](float (&cur)[KT / 8][4], float (&nxt)[KT / 8][4], int j) {
+      const int st = j % STAGES, nx = (j + 1) % STAGES;
+      // j-1's PV landed at the end of the last step; with two stages its
+      // stage is the one j+1 loads into
+      if (j > 0) release(j - 1);
+      mbar_wait(smem_u32(&full[nx]), ((j + 1) / STAGES) & 1);
+      wgmma_fence();
+      qk_wgmma(nxt, q_tile, k_tiles + nx * TILE_BYTES);
+      wgmma_commit();
+      softmax_step<STEP, false>(cur, pa, acc, m, l, scale, qrow, j * KT, lane);
+      pack_step<STEP>(cur, pa);
+      fence_regs(acc);
+      wgmma_fence();
+      pv_wgmma(pa, v_tiles + st * TILE_BYTES, acc);
+      wgmma_commit();
+      wgmma_wait<0>();  // S(j+1) and PV(j)
+      fence_regs(nxt);
+      fence_regs(acc);
+    };
+    if (n_unmasked > 0) scores_landed(s, 0);  // the prologue
+    // unrolled by two, the sets alternating: S(kt) is in s on every entry
+    for (; kt + 1 < n_unmasked; kt += 2) {
+      pipe_step(s, s2, kt);
+      if (kt + 2 == n_unmasked) {  // S(kt+1), the drain's, landed in s2
+#pragma unroll
+        for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = s2[nt][e];
+        ++kt;
+        break;
+      }
+      pipe_step(s2, s, kt + 1);
+    }
   }
-  // K3's body: every sub-tile of K3 and K5; K7c's odd leftover and masked
-  // tail, the ring counter kt carrying on from the pairs
+  // K3's body: every sub-tile of the kOne instances; K7c's odd leftover,
+  // K4's drain (kt = n_unmasked - 1, its S in s already) and the masked
+  // tail, the ring counter kt carrying on from the body above
   for (; kt < n_tiles; ++kt) {
     const int st = kt % STAGES;
-    mbar_wait(smem_u32(&full[st]), (kt / STAGES) & 1);
-    wgmma_fence();
-    qk_wgmma(s, q_tile, k_tiles + st * TILE_BYTES);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
+    if (BODY != Body::kPipe || kt + 1 != n_unmasked) scores_landed(s, kt);
     if (kt > 0) release(kt - 1);
     if (kt < n_unmasked)  // below the diagonal: no mask
       softmax_step<STEP, false>(s, pa, acc, m, l, scale, qrow, kt * KT, lane);
@@ -1046,7 +996,7 @@ bool bad_shape(int heads, int seq, int block_q, int block_k) {
 }
 
 const float SCALE = (float)(1.0 / sqrt((double)D));  // the reference's f32 scale
-const float SCALE_LOG2 = LOG2E / sqrtf((float)D);     // K3's and K4's
+const float SCALE_LOG2 = LOG2E / sqrtf((float)D);     // K3's, K4's and K7a's
 
 template <Step STEP>
 int launch(const void* q, const void* k, const void* v, void* o, int heads, int seq,
@@ -1064,7 +1014,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int heads, int 
 using FlashKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
                              __nv_bfloat16*, int, int, int, int, float);
 
-// K4, K7a: two stages of K and V in dynamic shared memory, above the 48 KB
+// K7a: two sub-tiles of K and V in dynamic shared memory, above the 48 KB
 // a kernel gets without asking.
 int launch_two_stage(FlashKernel kernel, const void* q, const void* k, const void* v, void* o,
                      int heads, int seq, int block_q, int block_k, int causal, float scale,
@@ -1132,7 +1082,7 @@ constexpr int wgmma_smem(int stages, int warpgroups) {
 // An instance's dynamic shared memory allowed on the current device, once
 // per instance and device (a function attribute belongs to one function
 // in the device's context).
-template <Step STEP, bool PAIRED, int STAGES>
+template <Step STEP, Body BODY, int STAGES>
 cudaError_t allow_wgmma_smem() {
   static std::atomic<bool> done[MAX_DEVICES];
   int dev = 0;
@@ -1140,17 +1090,17 @@ cudaError_t allow_wgmma_smem() {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (done[dev].load()) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<STEP, PAIRED, STAGES>,
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<STEP, BODY, STAGES>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              wgmma_smem(STAGES, MAX_WG));
   if (err == cudaSuccess) done[dev].store(true);
   return err;
 }
 
-// K3, K5, K7c: block_q 64 or 128 (whole warpgroups), block_k a multiple of
+// K3, K4, K5, K7b, K7c: block_q 64 or 128 (whole warpgroups), block_k a multiple of
 // 64. No fallback: a map that cannot be encoded or a refused launch is an
 // error the caller raises.
-template <Step STEP, bool PAIRED, int STAGES>
+template <Step STEP, Body BODY, int STAGES>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int heads, int seq,
                  int block_q, int block_k, int causal, float scale, void* stream) {
   if (bad_shape(heads, seq, block_q, block_k) || (block_q != 64 && block_q != 128))
@@ -1160,11 +1110,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int heads
   if (!tile_map(&maps[0], q, rows) || !tile_map(&maps[1], k, rows) ||
       !tile_map(&maps[2], v, rows))
     return cudaErrorInvalidValue;
-  const cudaError_t attr = allow_wgmma_smem<STEP, PAIRED, STAGES>();
+  const cudaError_t attr = allow_wgmma_smem<STEP, BODY, STAGES>();
   if (attr != cudaSuccess) return (int)attr;
   const int smem = wgmma_smem(STAGES, block_q / 64);
   dim3 grid(seq / block_q, heads);
-  flash_fwd_wgmma_kernel<STEP, PAIRED, STAGES><<<grid, block_q * 2, smem, (cudaStream_t)stream>>>(
+  flash_fwd_wgmma_kernel<STEP, BODY, STAGES><<<grid, block_q * 2, smem, (cudaStream_t)stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), seq, block_q, block_k, causal,
       scale);
   return (int)cudaGetLastError();
@@ -1175,14 +1125,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int heads
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                               int heads, int seq, int block_q, int block_k, int causal,
                               void* stream) {
-  return launch_wgmma<Step::kFull, false, K3_STAGES>(q, k, v, o, heads, seq, block_q, block_k,
+  return launch_wgmma<Step::kFull, Body::kOne, K3_STAGES>(q, k, v, o, heads, seq, block_q, block_k,
                                                     causal, SCALE_LOG2, stream);
 }
 
 extern "C" int flash_fwd_bf16exp(const void* q, const void* k, const void* v, void* o,
                                  int heads, int seq, int block_q, int block_k, int causal,
                                  void* stream) {
-  return launch_wgmma<Step::kBf16Exp, false, K3_STAGES>(q, k, v, o, heads, seq, block_q, block_k,
+  return launch_wgmma<Step::kBf16Exp, Body::kOne, K3_STAGES>(q, k, v, o, heads, seq, block_q, block_k,
                                                        causal, SCALE, stream);
 }
 
@@ -1201,14 +1151,15 @@ extern "C" int flash_qk_only(const void* q, const void* k, void* o, int heads, i
 extern "C" int flash_fwd_bf16s(const void* q, const void* k, const void* v, void* o,
                                int heads, int seq, int block_q, int block_k, int causal,
                                void* stream) {
-  return launch<Step::kBf16S>(q, k, v, o, heads, seq, block_q, block_k, causal, stream);
+  return launch_wgmma<Step::kBf16S, Body::kOne, K3_STAGES>(q, k, v, o, heads, seq, block_q, block_k,
+                                                        causal, SCALE, stream);
 }
 
 extern "C" int flash_fwd_pipelined(const void* q, const void* k, const void* v, void* o,
                                    int heads, int seq, int block_q, int block_k, int causal,
                                    void* stream) {
-  return launch_two_stage(flash_fwd_pipelined_kernel, q, k, v, o, heads, seq, block_q, block_k,
-                          causal, SCALE_LOG2, stream);
+  return launch_wgmma<Step::kFull, Body::kPipe, K4_STAGES>(q, k, v, o, heads, seq, block_q, block_k,
+                                                        causal, SCALE_LOG2, stream);
 }
 
 extern "C" int flash_fwd_paired(const void* q, const void* k, const void* v, void* o,
@@ -1221,6 +1172,6 @@ extern "C" int flash_fwd_paired(const void* q, const void* k, const void* v, voi
 extern "C" int flash_fwd_paired16(const void* q, const void* k, const void* v, void* o,
                                   int heads, int seq, int block_q, int block_k, int causal,
                                   void* stream) {
-  return launch_wgmma<Step::kBf16S, true, K7C_STAGES>(q, k, v, o, heads, seq, block_q, block_k,
+  return launch_wgmma<Step::kBf16S, Body::kPair, K7C_STAGES>(q, k, v, o, heads, seq, block_q, block_k,
                                                      causal, SCALE, stream);
 }

@@ -10,14 +10,16 @@ of ``fa_common.setup``. The modes, each a kernel in ``csrc/flash.cu``:
 
 * ``paired`` (K7a): two 64-key sub-tiles staged behind one pair of
   barriers, both score products issued before either softmax; K3's
-  function, bit for bit. K3 is the Hopper kernel (TMA ring, ``wgmma``),
-  so the ratio sets the synchronous structure against it.
+  function, bit for bit. K7a keeps the synchronous ``mma.sync``
+  structure and K3 is the Hopper kernel (TMA ring, ``wgmma``), so the
+  ratio sets the synchronous structure against it.
 * ``bf16s`` (K7b): the scores rounded to bf16 once and the whole softmax
-  run at half width (the reference's ``scores_b``/``soft_b``).
+  run at half width (the reference's ``scores_b``/``soft_b``). It runs on
+  K3's Hopper kernel with K3's loop (``block_q`` 64 or 128), so its ratio
+  reads the half-width softmax alone on K3's structure.
 * ``paired16`` (K7c): both; K7b's function, bit for bit. It runs on K3's
-  Hopper kernel (TMA ring, ``wgmma``, ``block_q`` 64 or 128) with two S
-  sets in flight, so its ratio reads pairing and the half-width softmax
-  on K3's own structure.
+  Hopper kernel with two S sets in flight, so its ratio reads pairing and
+  the half-width softmax on K3's own structure.
 
 ``experiment_flash`` takes a mode's plain version only for CPU tensors
 (``flashattn.plain_flash``, with ``bf16s=True`` for the two half-width

@@ -8,10 +8,12 @@ the port's default blocks 128/128 in place of the TPU's 256/1024:
 9 reps. Both kernels' ``max_err`` against the f32 oracle on the tensors of
 ``fa_common.setup`` (8 heads x 8192 x 128, causal; ``shipped`` is
 ``full``), then the median and interquartile range of 9 adjacent
-wall-time ratios ``full/pipelined`` (>1 means ``pipelined`` is faster). A
-single-shot comparison of two variants on a card whose clocks wander is
-noise; this comparator is what decides. Prints the card's name, then one
-JSON line.
+wall-time ratios ``full/pipelined`` (>1 means ``pipelined`` is faster).
+Both run on the Hopper kernel, K4 with the next S product on the tensor
+cores while the current softmax runs, so the ratio reads what that
+overlap buys over K3's serial loop. A single-shot comparison of two
+variants on a card whose clocks wander is noise; this comparator is what
+decides. Prints the card's name, then one JSON line.
 """
 
 from __future__ import annotations

@@ -12,17 +12,20 @@ All five variants of the reference are ported, each to a kernel in
 with the next scores issued before the current softmax), ``bf16exp`` (K5,
 ``exp`` of a bf16 difference), and the attribution instruments
 ``softmax_stub`` and ``qk_only`` (K6a, K6b), whose numerics are wrong by
-design. K3 and K5 are built for Hopper: K/V stream through a TMA ring and
-both products run on ``wgmma``, one warpgroup per 64 query rows, so they
-take ``block_q`` 64 or 128. K4, K6a and K6b keep the synchronous
-``mma.sync`` structure (``block_q`` a multiple of 16 up to 128). Each has
-a plain version below in torch ops that follows the reference per
-``block_k`` block.
+design. K3, K4 and K5 are built for Hopper: K/V stream through a TMA ring
+and both products run on ``wgmma``, one warpgroup per 64 query rows, so
+they take ``block_q`` 64 or 128; K4 keeps the next scores in flight on the
+tensor cores while the current softmax runs. K6a and K6b keep the
+synchronous ``mma.sync`` structure (``block_q`` a multiple of 16 up to
+128). Each has a plain version below in torch ops that follows the
+reference per ``block_k`` block.
 ``flash_attention`` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the variant's kernel or raises. ``run_flashattn_breakdown``
 times the instruments and attributes K3's time to the matmuls, the softmax,
-PV and pipelining; since K3 and the instruments no longer share a
-structure, that split sets the Hopper K3 against the synchronous one.
+PV and pipelining. K3 and K4 share the Hopper structure, so
+``pipeline_recovered_us`` reads what the overlap buys there; the stubs
+keep the synchronous one, so the other three terms set the Hopper K3
+against it.
 """
 
 from __future__ import annotations
@@ -48,10 +51,13 @@ LANES = 128  # head_dim the kernel takes
 BLOCK_Q_CAP = 128
 BLOCK_K_CAP = 128
 KERNEL_KEY_TILE = 64
-KERNEL_MAX_BLOCK_Q = 128  # K4, K6a, K6b, K7a, K7b: block_q/16 warps of 16 rows, at most 8
+KERNEL_MAX_BLOCK_Q = 128  # K6a, K6b, K7a: block_q/16 warps of 16 rows, at most 8
 WGMMA_BLOCK_Q = (64, 128)  # the Hopper kernel's: whole warpgroups
 # the launch counters of the kernels that run on the Hopper kernel
-WGMMA_KERNELS = ("flash_fwd", "flash_fwd_bf16exp", "flash_fwd_paired16")
+WGMMA_KERNELS = (
+    "flash_fwd", "flash_fwd_pipelined", "flash_fwd_bf16exp", "flash_fwd_bf16s",
+    "flash_fwd_paired16",
+)
 
 REFERENCE_VARIANTS = ("full", "pipelined", "softmax_stub", "qk_only", "bf16exp")
 PORTED_VARIANTS = REFERENCE_VARIANTS
@@ -95,6 +101,10 @@ class FlashAttnResult:
     tflops_effective: float = 0.0
     elapsed_s: float = 0.0
     error: str = ""
+    # the tiling the probe ran; kept out of the payload, whose keys are the
+    # reference's
+    block_q: int = 0
+    block_k: int = 0
 
     def to_dict(self):
         return {
@@ -252,9 +262,10 @@ def flash_attention(
 
 def check_kernel_tiling(name: str, block_q: int, block_k: int) -> None:
     """Raise ``ValueError`` unless the kernel counted as ``name`` takes
-    ``(block_q, block_k)`` on the card: the Hopper kernel's (K3, K5, K7c,
-    ``WGMMA_KERNELS``) ``block_q`` 64 or 128, the others a multiple of 16
-    up to 128; every kernel ``block_k`` a multiple of 64. ``_launch`` calls
+    ``(block_q, block_k)`` on the card: the Hopper kernel's (K3, K4, K5,
+    K7b, K7c, ``WGMMA_KERNELS``) ``block_q`` 64 or 128, the others (K6a,
+    K6b, K7a) a multiple of 16 up to 128; every kernel ``block_k`` a
+    multiple of 64. ``_launch`` calls
     it before any CUDA call."""
     if name in WGMMA_KERNELS:
         q_ok, takes = block_q in WGMMA_BLOCK_Q, "block_q 64 or 128"
@@ -341,14 +352,47 @@ def causal_flops(seq: int, heads: int, head_dim: int, block_q: int, block_k: int
 
 
 def _default_block(seq: int, cap: int) -> int:
-    """Largest divisor of ``seq`` at or below ``cap`` that is a multiple of
-    8; with none, ``min(cap, seq)``. So a prime ``seq`` at or below the cap
+    """The reference's rule, which the CPU path keeps: the largest divisor
+    of ``seq`` at or below ``cap`` that is a multiple of 8; with none,
+    ``min(cap, seq)``. So a prime ``seq`` at or below the cap
     gets one whole-seq block, and one above it a block that does not tile,
     which ``make_flash_fn`` refuses."""
     return next(
         (d for d in range(min(cap, seq), 7, -1) if seq % d == 0 and d % 8 == 0),
         min(cap, seq),
     )
+
+
+def card_blocks(seq: int) -> tuple[int, int]:
+    """The default ``(block_q, block_k)`` on the card, which every kernel
+    takes (``check_kernel_tiling``): the largest ``block_q`` of
+    ``WGMMA_BLOCK_Q`` and the largest multiple of 64 at most
+    ``BLOCK_K_CAP`` that divide ``seq``. The reference's rule
+    (``_default_block``) may pick blocks the kernels refuse (104/104 at seq
+    4160), so on ``cuda`` the probe and the breakdown take this one. A
+    ``seq`` that is not a multiple of 64 has no such tiling: ``ValueError``."""
+    bq = next((b for b in sorted(WGMMA_BLOCK_Q, reverse=True) if seq % b == 0), None)
+    bk = next((b for b in range(BLOCK_K_CAP - BLOCK_K_CAP % KERNEL_KEY_TILE, 0,
+                                -KERNEL_KEY_TILE) if seq % b == 0), None)
+    if bq is None or bk is None:
+        raise ValueError(
+            f"seq={seq} has no tiling the CUDA kernels take: block_q 64 or 128 and "
+            f"block_k a multiple of {KERNEL_KEY_TILE}, each dividing seq"
+        )
+    return bq, bk
+
+
+def default_blocks(seq: int, device: torch.device, block_q=None, block_k=None):
+    """``(block_q, block_k)``: each given one as it is, the others by
+    ``card_blocks`` on ``cuda`` and by the reference's ``_default_block``
+    elsewhere."""
+    if block_q is not None and block_k is not None:
+        return block_q, block_k
+    if device.type == "cuda":
+        dq, dk = card_blocks(seq)
+    else:
+        dq, dk = _default_block(seq, BLOCK_Q_CAP), _default_block(seq, BLOCK_K_CAP)
+    return (dq if block_q is None else block_q), (dk if block_k is None else block_k)
 
 
 def run_flashattn_probe(
@@ -368,12 +412,11 @@ def run_flashattn_probe(
     probes). A rate above 1.05x the card's bf16 peak is a broken
     measurement and fails the probe. On the CPU the plain version checks
     numerics only. On ``cuda`` unless ``device`` says otherwise; without a
-    GPU the default raises."""
+    GPU the default raises. Blocks not given are ``default_blocks``'s."""
     dev = resolve_device(device)
     try:
         on_gpu = dev.type == "cuda"
-        bq = block_q if block_q is not None else _default_block(seq, BLOCK_Q_CAP)
-        bk = block_k if block_k is not None else _default_block(seq, BLOCK_K_CAP)
+        bq, bk = default_blocks(seq, dev, block_q, block_k)
 
         gen = torch.Generator(device=dev).manual_seed(11)
         shape = (heads, seq, head_dim)
@@ -440,6 +483,8 @@ def run_flashattn_probe(
             tflops=tflops,
             tflops_effective=tflops_effective,
             elapsed_s=elapsed,
+            block_q=bq,
+            block_k=bk,
         )
     except Exception as e:
         return FlashAttnResult(False, error=str(e))
@@ -495,10 +540,10 @@ def run_flashattn_breakdown(
     best of 2 with up to 2 more against the plausibility limit
     (``_pick_reading``). On ``cuda`` unless ``device`` says otherwise;
     without a GPU the default raises, and ``device="cpu"`` returns
-    ``{"ok": False}``: there is nothing to time there."""
+    ``{"ok": False}``: there is nothing to time there. Blocks not given
+    are ``default_blocks``'s."""
     dev = resolve_device(device)
-    bq = block_q if block_q is not None else _default_block(seq, BLOCK_Q_CAP)
-    bk = block_k if block_k is not None else _default_block(seq, BLOCK_K_CAP)
+    bq, bk = default_blocks(seq, dev, block_q, block_k)
     out = {"ok": False, "seq": seq, "heads": heads, "block_q": bq, "block_k": bk}
     if dev.type != "cuda":
         out["error"] = "breakdown requires the GPU"
