@@ -10,27 +10,35 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    versions, build the kernels from ``tpu_operator_torch/csrc`` (ptxas's
    registers and spills printed; a ``wgmma`` serialization note, C7515 or
    C7519, fails), and count ``HGMMA``, ``UTMALDG`` and ``HMMA`` in the SASS
-   of each of the five instances of the Hopper kernel, K3, K4, K5, K7b and
-   K7c (``cuobjdump``; a missing instance, no HGMMA or UTMALDG, or any
+   of each of the six instances of the Hopper kernel, K3, K4, K5, K7a, K7b
+   and K7c (``cuobjdump``; a missing instance, no HGMMA or UTMALDG, or any
    HMMA fails);
-2. hold each kernel against its plain PyTorch version on the card (the
-   copies bit-exact; flash attention K3 and the variants K4 ``pipelined``
+2. first, under a watchdog of ``PARTIAL_TILE_TIMEOUT_S`` (a wrong TMA
+   transaction count on a box that reaches past seq would hang a kernel),
+   every flash kernel at ``PARTIAL_TILE_SHAPES``, seqs its blocks do not
+   divide, against its plain version at the same tiling (K6b only where
+   ``block_k`` >= 128, the structural modes only causal), with the bit
+   identities K4 == K3, K7a == K3 and K7c == K7b; then hold each kernel
+   against its plain PyTorch version on the card (the
+   copies bit-exact, and K1's tried Hopper design, ``tiled_copy_tma``,
+   timed beside K1; flash attention K3 and the variants K4 ``pipelined``
    and K5 ``bf16exp`` within 1e-2 of their plain versions and within 2e-2
    of the f32 oracle, also at the edges of the Hopper kernel
    (``K3_EDGE_SHAPES``) and, for K4 and K5, at 1 x 512 with 64/64 blocks,
    where some q-blocks have an odd number (3, 5, 7) of unmasked
    sub-tiles, K4 equal to K3 bit for bit at every shape; the
    instruments K6a ``softmax_stub`` within 1e-2 and K6b ``qk_only``
-   within one bf16 ulp of theirs), check that K3, K4, K5, K7b and K7c
+   within one bf16 ulp of theirs), check that K3, K4, K5, K7a, K7b and K7c
    refuse ``block_q`` 32 with ``ValueError`` and launch nothing and that
    the host cost per call of each stays within ``K3_HOST_LIMIT_US`` of
    K6a's (their tensor maps; K6a encodes none), and time kernel, plain
    version and one library call at the main path's shapes;
 3. run the main path in-process at its full operating points (matmul 8192,
    membw 2 GiB, flash attention 8192 x 8 heads) with the launch counts set
-   to 0 just before and read just after; then, counted apart, the flash
-   probe at seq 4160 with the card's default blocks, which must run 64/64,
-   launch K3 and pass the oracle;
+   to 0 just before and read just after; then, each counted apart, the
+   flash probe with the card's default blocks at seq 4160, which must run
+   64/64, and at seq 8200, which must run 128/128 with a partial last
+   block, each launching K3 and passing the oracle;
 3b. run the flash-attention attribution path the same way: the bench's
    ``run_flashattn_breakdown(seq=8192, heads=8, iters=16)`` and the
    ``bf16exp`` probe at 8192 x 8 heads, each of K3-K6b launched; then,
@@ -41,9 +49,9 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    in mean-abs to their own softmax's plain version than to the other's;
    K7b and K7c never equal to K3) and the f32 oracle (2e-2) at the
    variants' causal shapes, at the causal edges of the Hopper kernel, at
-   1 x 512 with 64/64 blocks and at 8 x 8192, K7a against K3 (whether
-   bit for bit is logged, within 1e-2 required) and K7c equal to K7b bit
-   for bit; then, with the launch counts set to 0 just before and read
+   1 x 512 with 64/64 blocks and at 8 x 8192, K7a equal to K3 and K7c
+   equal to K7b bit for bit; then, with the launch counts set to 0 just
+   before and read
    just after, run ``run_experiment`` with all three modes at 8192 x 8
    heads, each of K7a-c launched; then time K7a-c;
 4. run the validator CLI for the same three components as subprocesses,
@@ -59,6 +67,7 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import re
@@ -74,6 +83,19 @@ FLASH_FILE = "tpu_operator/workloads/flashattn.py"
 FLASH_REPLACES = f"{FLASH_FILE}:112"
 FLASH_TOL_PLAIN = 1e-2  # same function, f32 sums in another order, p rounded per sub-tile
 FLASH_TOL_ORACLE = 2e-2  # the reference's oracle tolerance
+# (heads, seq, block_q, block_k, causal) where the blocks do not divide seq:
+# a partial last q-block whose second warpgroup lies wholly past seq, and a
+# k-block cut at seq (520 at 128/128); a single partial q-block and k-block
+# (72 at 64/64; 100 at 64/64, a seq the reference tiles 100/100); no mask
+# but the last k-block's bound (200 at 64/128)
+PARTIAL_TILE_SHAPES = [
+    (2, 520, 128, 128, True),
+    (1, 72, 64, 64, True),
+    (2, 200, 64, 128, False),
+    (1, 100, 64, 64, True),
+]
+# seconds the partial-tile checks may take before the watchdog ends the run
+PARTIAL_TILE_TIMEOUT_S = 120
 
 # (heads, seq, block_q, block_k, causal): the CPU tests' shapes
 FLASH_TEST_SHAPES = [
@@ -95,7 +117,8 @@ WGMMA_KERNEL = "flash_fwd_wgmma_kernel"  # the Hopper kernel's __global__ in csr
 # flash_fwd_wgmma_kernel<Step, Body, int STAGES> gives ...LNS_4StepE<s>ELNS_4BodyE<b>E...,
 # Step::kFull = 0, kBf16Exp = 1, kBf16S = 4; Body::kOne = 0, kPair = 1, kPipe = 2
 WGMMA_INSTANCES = {
-    ("0", "0"): "K3", ("0", "2"): "K4", ("1", "0"): "K5", ("4", "0"): "K7b", ("4", "1"): "K7c",
+    ("0", "0"): "K3", ("0", "1"): "K7a", ("0", "2"): "K4", ("1", "0"): "K5", ("4", "0"): "K7b",
+    ("4", "1"): "K7c",
 }
 WGMMA_NAME_ARGS = re.compile(r"StepE(\d+)E.*?BodyE(\d+)E")
 # the softmax's instruction mix, logged per instance (static counts in its
@@ -139,9 +162,10 @@ STRUCTURAL_TEST_SHAPES = [s for s in VARIANT_TEST_SHAPES if s[4]] + [
 ] + [s for s in K3_EDGE_SHAPES if s[4]]
 # where K4 and K5, the attribution variants on the Hopper kernel, also run
 HOPPER_VARIANT_SHAPES = K3_EDGE_SHAPES + [ODD_UNMASKED_SHAPE]
-# a seq the reference's block rule tiles 104/104, which no kernel takes;
-# the probe there must run the card's default, 64/64
-CARD_BLOCK_SEQ, CARD_BLOCKS = 4160, (64, 64)
+# (seq, the card's default blocks there) of the probes counted apart from
+# the main path: 4160, which the reference's block rule tiles 104/104 and
+# no kernel takes; 8200 (8192 + 8), which 128 does not divide
+PROBE_EDGES = [(4160, (64, 64)), (8200, (128, 128))]
 BF16_ULP = 2.0**-7  # bf16 keeps 8 significant bits: one ulp is at most 2^-7 of |x|
 
 
@@ -152,17 +176,9 @@ def log(msg: str) -> None:
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean device time of ``fn()`` over ``reps`` back-to-back calls,
     from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from tpu_operator_torch.workloads.timing import event_ms
+
+    return event_ms(fn, reps, warmup)
 
 
 def phase_setup():
@@ -209,7 +225,37 @@ def peaks():
     return PEAK_BF16_TFLOPS[gen] * 1e12, PEAK_HBM_GBPS[gen] * 1e9
 
 
-def phase_kernels() -> list:
+def check_partial_tiles(fa, qkv) -> dict:
+    """Every flash kernel at PARTIAL_TILE_SHAPES against its plain version
+    (check_variant, check_modes), under a watchdog that ends the run with
+    a traceback after PARTIAL_TILE_TIMEOUT_S; returns each kernel's worst
+    |kernel - plain| by launch counter."""
+    from tpu_operator_torch.workloads import fa_experiment as fx
+
+    worst = {}
+    faulthandler.dump_traceback_later(PARTIAL_TILE_TIMEOUT_S, exit=True)
+    try:
+        for h, s, bq, bk, causal in PARTIAL_TILE_SHAPES:
+            q, k, v = qkv(h, s)
+            variants = ["full", "pipelined", "bf16exp", "softmax_stub"]
+            if bk >= fa.LANES:
+                variants.append("qk_only")
+            errs = {fa.VARIANT_KERNELS[variant][0]: check_variant(fa, variant, q, k, v, bq, bk,
+                                                                  causal)
+                    for variant in variants}
+            if causal:
+                errs.update((fx.MODE_KERNELS[mode], err)
+                            for mode, err in check_modes(fa, fx, q, k, v, bq, bk).items())
+            for name, err in errs.items():
+                worst[name] = max(worst.get(name, 0.0), err)
+        torch.cuda.synchronize()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    log(f"partial tiles: every flash kernel within its tolerance at {PARTIAL_TILE_SHAPES}")
+    return worst
+
+
+def phase_kernels() -> tuple:
     from tpu_operator_torch.workloads import flashattn as fa
     from tpu_operator_torch.workloads import membw as mb
 
@@ -222,10 +268,9 @@ def phase_kernels() -> list:
     # K1 and K2: bit-exact at a small shape and at the probe's 2 GiB
     small = torch.arange(8 * mb.LANES, device=dev, dtype=torch.float32).reshape(8, mb.LANES)
     big = torch.randn((rows, mb.LANES), generator=gen, device=dev, dtype=torch.float32)
-    for name, wrapper, line in (
-        ("tiled_copy", mb.tiled_copy, 86),
-        ("bulk_copy", mb.bulk_copy, 116),
-    ):
+    dst = torch.empty_like(big)
+
+    def bit_exact(name, wrapper) -> float:
         err = 0.0
         for x in (small, big):
             got, plain = wrapper(x), mb.plain_copy(x)
@@ -234,7 +279,13 @@ def phase_kernels() -> list:
                 raise RuntimeError(f"{name} is not bit-exact at {tuple(x.shape)}")
             err = max(err, float((got - plain).abs().max()))
             del got, plain
-        dst = torch.empty_like(big)
+        return err
+
+    for name, wrapper, line in (
+        ("tiled_copy", mb.tiled_copy, 86),
+        ("bulk_copy", mb.bulk_copy, 116),
+    ):
+        err = bit_exact(name, wrapper)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -249,10 +300,16 @@ def phase_kernels() -> list:
             "library_ms": time_ms(lambda: dst.copy_(big), 20),
         })
         log(f"{name}: bit-exact at (8, {mb.LANES}) and {tuple(big.shape)}")
+    # K1's tried Hopper design (TMA ring, persistent grid), on no path:
+    # checked as K1 is and timed beside it in this run
+    bit_exact("tiled_copy_tma", mb.tiled_copy_tma)
+    k1 = kernels[0]
+    log(f"K1's tried Hopper design (tiled_copy_tma): bit-exact, "
+        f"{time_ms(lambda: mb.tiled_copy_tma(big), 20):.4f} ms against K1 {k1['ms']:.4f}, "
+        f"Tensor.copy_ {k1['library_ms']:.4f}, bound {k1['bound_ms']:.4f}")
     del big, small, dst
     torch.cuda.empty_cache()
 
-    # K3: the CPU tests' shapes, then the probe's shape
     def qkv(heads, seq):
         return [
             torch.randn((heads, seq, fa.LANES), generator=gen, device=dev,
@@ -260,6 +317,9 @@ def phase_kernels() -> list:
             for _ in range(3)
         ]
 
+    partial = check_partial_tiles(fa, qkv)
+    torch.cuda.empty_cache()
+    # K3: the CPU tests' shapes, then the probe's shape
     heads, seq = 8, 8192
     bq, bk = fa.card_blocks(seq)
     worst = 0.0
@@ -305,11 +365,13 @@ def phase_kernels() -> list:
     del q, k, v
     torch.cuda.empty_cache()
     kernels += variant_rows(fa, qkv, peak_flops, peak_bytes)
-    return kernels
+    for row in kernels:
+        row["max_abs_err"] = max(row["max_abs_err"], partial.get(row["name"], 0.0))
+    return kernels, partial
 
 
 def wgmma_callers(fa):
-    """(label, launch counter, fn(q, k, v, block_q, block_k)) of the five
+    """(label, launch counter, fn(q, k, v, block_q, block_k)) of the six
     kernels that run on the Hopper kernel, through their wrappers."""
     from tpu_operator_torch.workloads import fa_experiment as fx
 
@@ -323,14 +385,16 @@ def wgmma_callers(fa):
         ("K3", "flash_fwd", variant("full")),
         ("K4", "flash_fwd_pipelined", variant("pipelined")),
         ("K5", "flash_fwd_bf16exp", variant("bf16exp")),
+        ("K7a", "flash_fwd_paired", mode("paired")),
         ("K7b", "flash_fwd_bf16s", mode("bf16s")),
         ("K7c", "flash_fwd_paired16", mode("paired16")),
     ]
 
 
 def wgmma_refuse_block_q_32(fa, q, k, v) -> None:
-    """The Hopper kernel runs whole warpgroups: K3, K4, K5, K7b and K7c must
-    each raise ValueError at block_q 32 on the card before any launch."""
+    """The Hopper kernel runs whole warpgroups: K3, K4, K5, K7a, K7b and K7c
+    must each raise ValueError at block_q 32 on the card before any
+    launch."""
     from tpu_operator_torch import _build
 
     for label, name, run in wgmma_callers(fa):
@@ -381,7 +445,7 @@ def wgmma_host_cost(fa, qkv) -> None:
 def wgmma_sass() -> None:
     """Count HGMMA (wgmma), UTMALDG (TMA loads) and HMMA (mma.sync) in each
     instance of the Hopper kernel in the built library's SASS; fail unless
-    the five of WGMMA_INSTANCES are all there, each with HGMMA and UTMALDG
+    the six of WGMMA_INSTANCES are all there, each with HGMMA and UTMALDG
     and no HMMA. The softmax's instruction mix (SOFTMAX_OPS) is logged."""
     from tpu_operator_torch import _build
 
@@ -410,7 +474,7 @@ def wgmma_sass() -> None:
 
 
 def check_variant(fa, variant, q, k, v, bq, bk, causal) -> float:
-    """One variant's kernel against its plain version (and, for the two
+    """One variant's kernel against its plain version (and, for the three
     that compute attention, the f32 oracle; K4 must equal K3 bit for bit);
     raises on a miss."""
     got = fa.flash_attention(q, k, v, bq, bk, causal, variant)
@@ -420,7 +484,7 @@ def check_variant(fa, variant, q, k, v, bq, bk, causal) -> float:
     diff = (got.float() - plain).abs()
     err = float(diff.max())
     where = f"{variant} H={q.shape[0]} S={q.shape[1]} {bq}/{bk} causal={causal}"
-    if variant in ("pipelined", "bf16exp"):
+    if variant in ("full", "pipelined", "bf16exp"):
         err_ref = float((got.float() - fa.reference_attention(q, k, v, causal)).abs().max())
         note = f"|kernel-oracle|={err_ref:.3e}"
         ok = err <= FLASH_TOL_PLAIN and err_ref < FLASH_TOL_ORACLE
@@ -510,21 +574,23 @@ def phase_main_path() -> dict:
     fl = run_flashattn_probe(seq=8192, heads=8)
     torch.cuda.synchronize()
     launches = dict(_build.launches)
-    # default blocks at a seq the reference's rule would tile 104/104,
-    # counted apart from the main path
-    _build.reset_launches()
-    edge = run_flashattn_probe(seq=CARD_BLOCK_SEQ, heads=8)
-    torch.cuda.synchronize()
-    edge_launches = _build.launches["flash_fwd"]
-    log(f"flash probe at seq {CARD_BLOCK_SEQ}: blocks {edge.block_q}/{edge.block_k}, "
-        f"{edge_launches} flash_fwd launches")
-    if edge.ok and (edge.block_q, edge.block_k) != CARD_BLOCKS:
-        raise RuntimeError(f"the probe at seq {CARD_BLOCK_SEQ} ran {edge.block_q}/"
-                           f"{edge.block_k}, expected {CARD_BLOCKS}")
-    if edge.ok and edge_launches <= 0:
-        raise RuntimeError(f"the probe at seq {CARD_BLOCK_SEQ} never launched flash_fwd")
-    for name, res in (("matmul", mm), ("membw", bw), ("flashattn", fl),
-                      (f"flashattn seq {CARD_BLOCK_SEQ}", edge)):
+    # the card's default blocks at the edge seqs, each counted apart from
+    # the main path
+    edges = []
+    for seq, blocks in PROBE_EDGES:
+        _build.reset_launches()
+        edge = run_flashattn_probe(seq=seq, heads=8)
+        torch.cuda.synchronize()
+        edge_launches = _build.launches["flash_fwd"]
+        log(f"flash probe at seq {seq}: blocks {edge.block_q}/{edge.block_k}, "
+            f"{edge_launches} flash_fwd launches")
+        if edge.ok and (edge.block_q, edge.block_k) != blocks:
+            raise RuntimeError(f"the probe at seq {seq} ran {edge.block_q}/{edge.block_k}, "
+                               f"expected {blocks}")
+        if edge.ok and edge_launches <= 0:
+            raise RuntimeError(f"the probe at seq {seq} never launched flash_fwd")
+        edges.append((f"flashattn seq {seq}", edge))
+    for name, res in [("matmul", mm), ("membw", bw), ("flashattn", fl), *edges]:
         log(f"{name}: {json.dumps(res.to_dict())}")
         if not res.ok:
             raise RuntimeError(f"{name} failed: {res.error}")
@@ -581,8 +647,8 @@ def phase_attribution() -> dict:
 
 
 def check_modes(fa, fx, q, k, v, bq, bk) -> dict:
-    """K7a-c against their plain versions and the f32 oracle, K7a against
-    K3, and K7c equal to K7b bit for bit, at one causal shape; raises on a
+    """K7a-c against their plain versions and the f32 oracle, K7a equal to
+    K3 and K7c equal to K7b bit for bit, at one causal shape; raises on a
     miss and returns each mode's |kernel - plain|.
 
     The two softmaxes (f32 for K7a, half width for K7b/K7c) differ by less
@@ -616,15 +682,16 @@ def check_modes(fa, fx, q, k, v, bq, bk) -> dict:
         err = float((outs[paired].float() - base.float()).abs().max())
         same = torch.equal(outs[paired], base)
         log(f"{paired} {where}: bit-exact-vs-{single}={same} |kernel-{single}|={err:.3e}")
-        ok = ok and err <= FLASH_TOL_PLAIN and (same or paired == "paired")
+        ok = ok and err <= FLASH_TOL_PLAIN and same
     if not ok:
         raise RuntimeError(f"a structural variant disagrees with its reference at {where}")
     return errs
 
 
-def phase_structural() -> list:
+def phase_structural(partial: dict) -> list:
     """K7a-c: checked, driven through ``run_experiment`` with the launch
-    counts read just after, then timed."""
+    counts read just after, then timed; ``partial`` is
+    ``check_partial_tiles``'s worst errors, which their rows take in."""
     from tpu_operator_torch import _build
     from tpu_operator_torch.workloads import fa_experiment as fx
     from tpu_operator_torch.workloads import flashattn as fa
@@ -674,7 +741,7 @@ def phase_structural() -> list:
             "replaces": f"{EXPERIMENT_FILE}:{line}",
             "shape": [heads, seq, fa.LANES, bq, bk],
             "launches": launches[name],
-            "max_abs_err": worst[mode],
+            "max_abs_err": max(worst[mode], partial.get(name, 0.0)),
             "ms": time_ms(lambda: fx.experiment_flash(q, k, v, bq, bk, mode), 20),
             "plain_ms": time_ms(lambda: fx.plain_mode(q, k, v, bq, bk, mode), 2, warmup=1),
             "bound_ms": max(bound_flops, bound_io) * 1e3,
@@ -717,13 +784,13 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     phase_setup()
-    kernels = phase_kernels()
+    kernels, partial = phase_kernels()
     launches = phase_main_path()
     attribution = phase_attribution()
     variant_kernels = {name for _, name, _ in VARIANTS}
     for k in kernels:
         k["launches"] = (attribution if k["name"] in variant_kernels else launches)[k["name"]]
-    kernels += phase_structural()
+    kernels += phase_structural(partial)
     phase_cli()
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -185,6 +185,24 @@ def test_non_tiling_shapes_raise():
         port.build("paired16", 512, 2)(q, q, q)
 
 
+def test_modes_take_a_partial_last_block_as_flashattn_does():
+    """``experiment_flash`` takes the tilings ``flashattn`` takes: at seq
+    520 (128/128, a partial last block) ``paired`` is K3's function and
+    ``paired16`` K7b's, under the oracle's tolerance; ``build``, the
+    reference instrument's own, still takes only tilings that divide."""
+    q, k, v = (convert.to_torch(a) for a in bf16_qkv(2, 520, seed=8))
+    assert torch.equal(port.experiment_flash(q, k, v, 128, 128, "paired"),
+                       port.fa.flash_attention(q, k, v, 128, 128, True))
+    assert torch.equal(port.experiment_flash(q, k, v, 128, 128, "paired16"),
+                       port.experiment_flash(q, k, v, 128, 128, "bf16s"))
+    truth = port.fa.reference_attention(q, k, v)
+    for mode in port.MODES:
+        out = port.experiment_flash(q, k, v, 128, 128, mode)
+        assert float((out.float() - truth).abs().max()) < ORACLE_TOL, mode
+    with pytest.raises(ValueError, match="must tile"):
+        port.build("paired", 520, 2)
+
+
 def test_run_experiment_cpu_matches_the_reference_candidates():
     """The slice as a whole: each candidate's ``max_err`` against the
     oracle on the port's inputs within 1e-2 of the JAX candidate's on the

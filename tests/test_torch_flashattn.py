@@ -1,7 +1,8 @@
 """The port's flash attention against the JAX package's, on the CPU: the
 plain version of the CUDA kernel against the interpreted Pallas kernel and
-both oracles, and the tiling arithmetic (diag_stop, causal_flops, default
-blocks) shape for shape."""
+both oracles, also at the card's partial tilings against the reference's
+own, and the tiling arithmetic (diag_stop, causal_flops, default blocks)
+shape for shape."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -164,10 +165,11 @@ def test_k3_tiling_contract(block_q, takes):
 
 
 @pytest.mark.parametrize(
-    "name", ["flash_fwd_pipelined", "flash_fwd_bf16exp", "flash_fwd_bf16s", "flash_fwd_paired16"])
+    "name", ["flash_fwd_pipelined", "flash_fwd_bf16exp", "flash_fwd_paired", "flash_fwd_bf16s",
+             "flash_fwd_paired16"])
 @pytest.mark.parametrize("block_q,takes", [(32, False), (64, True), (128, True), (256, False)])
 def test_hopper_variants_take_k3s_tiling_contract(name, block_q, takes):
-    """K4, K5, K7b and K7c run on K3's Hopper kernel, so they take its
+    """K4, K5, K7a, K7b and K7c run on K3's Hopper kernel, so they take its
     block_q 64 or 128, and block_k a multiple of 64."""
     if takes:
         port.check_kernel_tiling(name, block_q, 128)
@@ -178,17 +180,17 @@ def test_hopper_variants_take_k3s_tiling_contract(name, block_q, takes):
         port.check_kernel_tiling(name, 128, 96)
 
 
-SYNCHRONOUS_KERNELS = ("flash_softmax_stub", "flash_qk_only", "flash_fwd_paired")
+SYNCHRONOUS_KERNELS = ("flash_softmax_stub", "flash_qk_only")
 
 
 def test_synchronous_kernels_keep_their_tiling_contract():
-    """K6a, K6b and K7a keep block_q a multiple of 16 up to 128; every
-    kernel takes block_k a multiple of 64 only."""
+    """K6a and K6b keep block_q a multiple of 16 up to 128; every kernel
+    takes block_k a multiple of 64 only."""
     assert not set(SYNCHRONOUS_KERNELS) & set(port.WGMMA_KERNELS)
     assert set(SYNCHRONOUS_KERNELS) | set(port.WGMMA_KERNELS) == {
         name for name in _build.KERNELS if name.startswith("flash_")}
     port.check_kernel_tiling("flash_softmax_stub", 32, 128)
-    port.check_kernel_tiling("flash_fwd_paired", 16, 64)
+    port.check_kernel_tiling("flash_softmax_stub", 16, 64)
     port.check_kernel_tiling("flash_qk_only", 48, 128)
     for name, bq, bk in (("flash_softmax_stub", 144, 128), ("flash_fwd_paired", 24, 128),
                          ("flash_fwd", 128, 96), ("flash_qk_only", 64, 0)):
@@ -215,17 +217,21 @@ def test_card_blocks_pass_every_kernels_tiling_contract():
 def test_card_blocks_at_4160_and_their_refusal():
     """Seq 4160 (65 x 64), where the reference's rule gives 104/104, which
     no kernel takes, gets 64/64 on the card and keeps 104/104 on the CPU;
-    seq 8192 keeps 128/128; seq 520 (not a multiple of 64) has no tiling
-    the kernels take and raises, naming their contract."""
+    seq 8192 keeps 128/128; seq 520 (not a multiple of 64, which the
+    reference tiles 104/520) gets 128/128 with a partial last block; seq
+    300, which the reference refuses, raises its must-tile error."""
     assert port.card_blocks(4160) == (64, 64)
     assert port.card_blocks(8192) == (port.BLOCK_Q_CAP, port.BLOCK_K_CAP) == (128, 128)
     assert port.default_blocks(4160, torch.device("cuda")) == (64, 64)
     assert port.default_blocks(4160, torch.device("cpu")) == (104, 104)
     assert port.default_blocks(4160, torch.device("cuda"), 128, 128) == (128, 128)
-    with pytest.raises(ValueError, match="block_q 64 or 128 and block_k a multiple of 64"):
-        port.card_blocks(520)
-    with pytest.raises(ValueError, match="block_q 64 or 128"):
-        port.default_blocks(520, torch.device("cuda"))
+    assert port.card_blocks(520) == (128, 128)
+    assert port.default_blocks(520, torch.device("cuda")) == (128, 128)
+    assert port.default_blocks(520, torch.device("cpu")) == (104, 104)
+    with pytest.raises(ValueError, match="must tile"):
+        port.card_blocks(300)
+    with pytest.raises(ValueError, match="must tile"):
+        port.default_blocks(300, torch.device("cuda"))
 
 
 def test_cpu_path_takes_any_tiling_the_reference_does():
@@ -242,3 +248,124 @@ def test_plain_version_launches_nothing():
     q, k, v = (convert.to_torch(a) for a in bf16_qkv(1, 128, seed=1))
     port.flash_attention(q, k, v, 64, 64)
     assert _build.launches["flash_fwd"] == 0
+
+
+def reference_takes(seq: int) -> bool:
+    """Whether the reference's probe runs at ``seq``: its default blocks
+    (``_default_block`` with caps 256/1024, held against the reference by
+    ``test_default_block_agrees``) tile it."""
+    bq, bk = port._default_block(seq, 256), port._default_block(seq, 1024)
+    return seq % bq == 0 and seq % bk == 0
+
+
+def test_card_blocks_take_every_seq_the_reference_takes():
+    """From 8 to 16384: at every seq the reference's probe takes, the
+    card's default blocks pass ``check_kernel_tiling`` for every flash
+    kernel and ``check_tiling`` at that seq, and cover it with at most
+    one partial block each; at every other seq (300 and 1031 among them)
+    ``card_blocks`` raises the reference's must-tile error."""
+    refused = []
+    for seq in range(8, 16384 + 1):
+        if not reference_takes(seq):
+            refused.append(seq)
+            with pytest.raises(ValueError, match="must tile"):
+                port.card_blocks(seq)
+            continue
+        bq, bk = port.card_blocks(seq)
+        port.check_tiling(seq, bq, bk)
+        for name in port.WGMMA_KERNELS + SYNCHRONOUS_KERNELS:
+            port.check_kernel_tiling(name, bq, bk)
+        assert port.n_blocks(seq, bq) * bq - seq < bq and bq <= max(seq, 64), seq
+    assert {300, 1031} <= set(refused) and 520 not in refused and 1000 not in refused
+
+
+def test_tiling_follows_the_reference_probe():
+    """``tiling_ok`` admits a partial last block exactly at the seqs the
+    reference's probe takes, and every tiling that divides seq."""
+    for seq in range(1, 4096 + 1):
+        assert port.tiling_ok(seq, 128, 128) == (reference_takes(seq) or seq % 128 == 0), seq
+    assert port.tiling_ok(8192, 128, 128) and port.tiling_ok(300, 100, 150)
+    assert not port.tiling_ok(300, 128, 128) and not port.tiling_ok(1031, 64, 64)
+
+
+# (seq, heads, causal) at seqs none of the card's blocks divide: the port's
+# plain version at the card's tiling (card_blocks: 128/128, or 64/64 below
+# 128), the JAX kernel at the reference's (_default_block, caps 256/1024)
+PARTIAL_SEQS = [
+    (520, 2, True),   # card 128/128, reference 104/520
+    (1000, 1, True),  # card 128/128, reference 200/1000
+    (100, 2, True),   # card 64/64, reference 100/100
+    (72, 2, True),    # card 64/64, reference 72/72
+    (200, 2, False),  # card 128/128, reference 200/200
+]
+
+
+@pytest.mark.parametrize("seq,heads,causal", PARTIAL_SEQS)
+def test_partial_tiling_matches_jax(seq, heads, causal):
+    """The card's partial tiling against the reference's own at the same
+    seq: port against JAX max-abs <= 1e-2, each against the f32 oracle
+    < 2e-2."""
+    bq, bk = port.card_blocks(seq)
+    rq, rk = port._default_block(seq, 256), port._default_block(seq, 1024)
+    assert seq % bq or seq % bk  # a partial last block on the port's side
+    q, k, v = bf16_qkv(heads, seq, seed=seq + 3)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = np.asarray(
+        ref.make_flash_fn(seq, heads, block_q=rq, block_k=rk, causal=causal,
+                          interpret=True)(jq, jk, jv)
+    ).astype(np.float32)
+    tq, tk, tv = (convert.to_torch(a) for a in (q, k, v))
+    out = port.make_flash_fn(seq, heads, block_q=bq, block_k=bk, causal=causal)(tq, tk, tv)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (heads, seq, 128)
+    got = convert.to_numpy(out, jnp.bfloat16).astype(np.float32)
+    oracle = np.asarray(ref.reference_attention(jq, jk, jv, causal))
+    assert float(np.abs(got - want).max()) <= 1e-2
+    assert float(np.abs(got - oracle).max()) < 2e-2
+    assert float(np.abs(want - oracle).max()) < 2e-2
+
+
+# (variant, causal): a partial last block computed as the kernels compute it,
+# on rows past seq filled with zeros; full attention only causal, where every
+# zero key lies above a real row's diagonal (non-causal, the kernels mask it)
+ZERO_FILL_CASES = [
+    (variant, causal)
+    for variant in port.REFERENCE_VARIANTS
+    for causal in (True, False)
+    if causal or variant in ("softmax_stub", "qk_only")
+]
+
+
+@pytest.mark.parametrize("variant,causal", ZERO_FILL_CASES)
+def test_plain_partial_block_is_the_zero_filled_block(variant, causal):
+    """The plain version's clipped last blocks at seq 200 (128/128) equal,
+    on the first 200 rows, the same function over the inputs padded with
+    zero rows to 256, whose blocks divide it: what the kernels compute by
+    filling rows past seq with zeros."""
+    seq, padded, heads = 200, 256, 2
+    q, k, v = (convert.to_torch(a) for a in bf16_qkv(heads, seq, seed=17))
+    pad = [torch.nn.functional.pad(t, (0, 0, 0, padded - seq)) for t in (q, k, v)]
+    got = port.flash_attention(q, k, v, 128, 128, causal, variant).float()
+    want = port.flash_attention(*pad, 128, 128, causal, variant)[:, :seq].float()
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("seq,bq,bk,pairs", [
+    (520, 128, 128, [1, 2, 3, 4, 5]),
+    # diag_stop(4) = 10 k-blocks of 64 reach key 639; seq 520 has 9
+    (520, 128, 64, [2, 4, 6, 8, 9]),
+    (72, 64, 64, [1, 2]),
+    (200, 64, 128, [1, 1, 2, 2]),
+])
+def test_causal_flops_count_the_partial_tiling(seq, bq, bk, pairs):
+    """``causal_flops`` counts ceil(seq/block_q) q-blocks, each through
+    ``diag_stop`` cut at the last k-block, whole blocks: what the kernels
+    run."""
+    assert [port.k_range(i, seq, bq, bk, True)[0] for i in range(port.n_blocks(seq, bq))] == pairs
+    assert port.causal_flops(seq, 8, 128, bq, bk) == 4.0 * 8 * sum(pairs) * bq * bk * 128
+
+
+def test_non_causal_partial_block_is_masked():
+    """Non-causal, every k-block runs and only a partial last one takes
+    the mask: n_full is the count of whole k-blocks."""
+    assert port.k_range(0, 200, 64, 128, False) == (2, 1)
+    assert port.k_range(3, 256, 64, 128, False) == (2, 2)

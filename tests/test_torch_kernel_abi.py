@@ -22,7 +22,11 @@ C_TYPES = {
     "long long": ctypes.c_longlong,
 }
 # membw's wrappers: launch counter -> C entry
-COPY_KERNELS = {"tiled_copy": "tiled_copy_f32", "bulk_copy": "bulk_copy"}
+COPY_KERNELS = {
+    "tiled_copy": "tiled_copy_f32",
+    "tiled_copy_tma": "tiled_copy_tma_f32",
+    "bulk_copy": "bulk_copy",
+}
 
 
 def _strip_comments(text: str) -> str:
@@ -132,11 +136,12 @@ def entry_body(src_name: str, entry: str) -> str:
 
 
 # entry -> (its instance of the Hopper kernel's Step and Body, its scale):
-# K3 and K4 work in the log2 domain, K5, K7b and K7c on the reference's
-# s*scale
+# K3, K4 and K7a work in the log2 domain, K5, K7b and K7c on the
+# reference's s*scale
 HOPPER_ENTRIES = {
     "flash_fwd_bf16": ("kFull", "kOne", "SCALE_LOG2"),
     "flash_fwd_pipelined": ("kFull", "kPipe", "SCALE_LOG2"),
+    "flash_fwd_paired": ("kFull", "kPair", "SCALE_LOG2"),
     "flash_fwd_bf16exp": ("kBf16Exp", "kOne", "SCALE"),
     "flash_fwd_bf16s": ("kBf16S", "kOne", "SCALE"),
     "flash_fwd_paired16": ("kBf16S", "kPair", "SCALE"),
@@ -147,8 +152,8 @@ LAUNCH_WGMMA = re.compile(
 
 @pytest.mark.parametrize("entry", sorted(HOPPER_ENTRIES))
 def test_hopper_entries_launch_through_launch_wgmma(entry):
-    """K3, K4, K5, K7b and K7c each launch their own instance of the Hopper
-    kernel (TMA ring, wgmma) with their scale, and nothing else."""
+    """K3, K4, K5, K7a, K7b and K7c each launch their own instance of the
+    Hopper kernel (TMA ring, wgmma) with their scale, and nothing else."""
     body = entry_body("flash.cu", entry)
     m = LAUNCH_WGMMA.fullmatch(body)
     assert m, f"{entry} does not launch through launch_wgmma: {body!r}"
@@ -200,8 +205,10 @@ def test_chip_smoke_expects_the_instances_the_entries_launch():
 
 def _unmasked_subtiles(seq: int, block_q: int, block_k: int, kt: int) -> set:
     """The unmasked sub-tile counts of a causal run's q-blocks, as
-    ``flash_fwd_wgmma_kernel`` computes ``n_unmasked``."""
-    return {(i * block_q) // block_k * (block_k // kt) for i in range(seq // block_q)}
+    ``flash_fwd_wgmma_kernel`` computes ``n_unmasked``, over
+    ceil(seq/block_q) q-blocks."""
+    return {(i * block_q) // block_k * (block_k // kt)
+            for i in range(flashattn.n_blocks(seq, block_q))}
 
 
 @pytest.mark.parametrize("kernels", ["K4", "K7a/K7c"])
@@ -222,6 +229,26 @@ def test_chip_smoke_reaches_both_exits_of_the_two_s_bodies(kernels):
     assert any(n >= 3 and n % 2 for n in counts), counts
 
 
+# the synchronous kernels' entries: K6a and K6b
+SYNCHRONOUS_ENTRIES = {"flash_softmax_stub", "flash_qk_only"}
+
+
+def test_only_the_stubs_keep_the_synchronous_design():
+    """The synchronous K7a is gone (no flash_fwd_paired_kernel, no
+    launch_two_stage), and every flash entry but K6a's and K6b's launches
+    through launch_wgmma."""
+    text = _strip_comments((_build.CSRC / "flash.cu").read_text())
+    for dead in ("flash_fwd_paired_kernel", "launch_two_stage", "PIPE_SMEM", "softmax_pv"):
+        assert dead not in text, dead
+    flash_entries = {e for e in c_entries() if e.startswith("flash_")}
+    assert SYNCHRONOUS_ENTRIES <= flash_entries
+    for entry in sorted(flash_entries - SYNCHRONOUS_ENTRIES):
+        assert LAUNCH_WGMMA.fullmatch(entry_body("flash.cu", entry)), entry
+    for entry in SYNCHRONOUS_ENTRIES:
+        assert "launch_wgmma" not in entry_body("flash.cu", entry), entry
+    assert set(HOPPER_ENTRIES) == flash_entries - SYNCHRONOUS_ENTRIES
+
+
 def test_error_string_is_bound(bound):
     fn = bound["cuda_error_string"]
     assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_char_p
@@ -239,3 +266,17 @@ def test_bulk_copy_plan_fits_the_probe_buffers(rows):
     assert piece % 16 == 0 and 0 <= lag < stages
     assert stages * piece <= 227 * 1024
     assert (rows * membw.LANES * 4) % (8 * piece) == 0
+
+
+def test_tiled_copy_tma_plan_fits_the_card():
+    """K1's tried Hopper design, read from copy.cu: its TMA box (at most
+    256 elements a side, rows of a multiple of 16 bytes) tiles the
+    16384-wide probe rows, its ring and alignment slack fit the 227 KB of
+    shared memory an H100 block may take, and fewer stores are in flight
+    at a refill than there are stages."""
+    c = constants("copy.cu")
+    cols, rows = c["TMA_COPY_BOX_COLS"], c["TMA_COPY_BOX_ROWS"]
+    stages, lag = c["TMA_COPY_STAGES"], c["TMA_COPY_LAG"]
+    assert c["LANES"] == membw.LANES and membw.LANES % cols == 0
+    assert cols <= 256 and rows <= 256 and (cols * 4) % 16 == 0
+    assert 0 <= lag < stages and stages * cols * rows * 4 + 128 <= 227 * 1024

@@ -12,14 +12,18 @@ from tpu_operator_torch import convert
 from tpu_operator_torch.workloads import membw as port
 
 
-@pytest.mark.parametrize("kind", ["tiled", "bulk"])
+@pytest.mark.parametrize("kind", ["tiled", "tiled_tma", "bulk"])
 def test_copy_plain_matches_jax_kernel(kind):
     """Bit-exact (a copy has no rounding) on the input of
     ``test_membw_copy_kernel_exact``: rows 8, block_rows 4."""
     rows = 8
     x = np.arange(rows * ref.LANES, dtype=np.float32).reshape(rows, ref.LANES)
     want = np.asarray(ref.make_copy_fn(rows, block_rows=4, interpret=True)(jnp.asarray(x)))
-    fn = port.make_copy_fn(rows, 4) if kind == "tiled" else port.make_dma_copy_fn(rows, 8)
+    fn = {
+        "tiled": port.make_copy_fn(rows, 4),
+        "tiled_tma": port.tiled_copy_tma,
+        "bulk": port.make_dma_copy_fn(rows, 8),
+    }[kind]
     got = convert.to_numpy(fn(convert.to_torch(x)))
     assert got.tobytes() == want.tobytes()
 
@@ -82,6 +86,15 @@ def test_copy_fns_reject_non_tiling_rows():
 )
 def test_copy_wrappers_reject_bad_buffers(shape, dtype):
     x = torch.zeros(shape, dtype=dtype)
-    for wrapper in (port.tiled_copy, port.bulk_copy):
+    for wrapper in (port.tiled_copy, port.tiled_copy_tma, port.bulk_copy):
         with pytest.raises(ValueError):
             wrapper(x)
+
+
+def test_time_copies_needs_the_card():
+    """The kernels' times come from the card only: without a GPU the
+    timing entry raises rather than time the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device does not raise")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.time_copies(size_mb=2)

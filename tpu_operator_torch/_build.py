@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a``, and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use, goes to ``build/tpu_operator_torch/<hash>/`` beside the package
-(git-ignored) and is keyed by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one loads what is there. A file lock
+(git-ignored) and is keyed by a hash of the sources (the ``.cu`` files and
+the ``.cuh`` headers they share) and flags, so a changed source rebuilds
+and an unchanged one loads what is there. A file lock
 keeps concurrent processes from building the same key twice.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a wrapper
@@ -35,10 +36,11 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# tiled_copy_tma: K1's tried Hopper design, timed beside K1, on no path
 KERNELS = (
-    "tiled_copy", "bulk_copy", "flash_fwd", "flash_fwd_pipelined", "flash_fwd_bf16exp",
-    "flash_softmax_stub", "flash_qk_only", "flash_fwd_paired", "flash_fwd_bf16s",
-    "flash_fwd_paired16",
+    "tiled_copy", "tiled_copy_tma", "bulk_copy", "flash_fwd", "flash_fwd_pipelined",
+    "flash_fwd_bf16exp", "flash_softmax_stub", "flash_qk_only", "flash_fwd_paired",
+    "flash_fwd_bf16s", "flash_fwd_paired16",
 )
 launches = {name: 0 for name in KERNELS}
 
@@ -61,7 +63,7 @@ def _sources():
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -108,8 +110,9 @@ def bind(lib):
     and the stream as ``c_void_p`` (ctypes would cut them to 32 bits
     otherwise), ints as ``c_int``, byte counts as ``c_longlong``."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.tiled_copy_f32.argtypes = [vp, vp, i64, vp]
-    lib.tiled_copy_f32.restype = i32
+    for name in ("tiled_copy_f32", "tiled_copy_tma_f32"):
+        getattr(lib, name).argtypes = [vp, vp, i64, vp]
+        getattr(lib, name).restype = i32
     lib.bulk_copy.argtypes = [vp, vp, i64, i32, vp]
     lib.bulk_copy.restype = i32
     for name in ("flash_fwd_bf16", "flash_fwd_pipelined", "flash_fwd_bf16exp",

@@ -28,7 +28,7 @@
 // fa_experiment.py), replaces the three modes of build() in
 // scripts/fa_experiment.py (pallas_call at :133), all causal:
 // K7a flash_fwd_paired replaces "paired" (:90-108): K3's function with
-// sub-tiles paired over the unmasked range.
+// sub-tiles paired over the unmasked range, so it equals K3.
 // K7b flash_fwd_bf16s replaces "bf16s" (scores_b/soft_b, :52-67): the
 // scores rounded to bf16 once, s_b = bf16(s*scale); m = max(m, rowmax s_b)
 // kept in f32, natural-log units; p = exp(s_b - bf16(m)) in bf16; l sums p
@@ -46,23 +46,34 @@
 // instruments are bound the same way: K6a does both products over the
 // causal tiling (1.4e11 FLOPs), K6b half of them.
 //
-// The Hopper kernel (flash_fwd_wgmma_kernel<STEP, BODY, STAGES>), five
+// The Hopper kernel (flash_fwd_wgmma_kernel<STEP, BODY, STAGES>), six
 // instances: K3 <kFull, kOne, 2>, K5 <kBf16Exp, kOne, 2>, K7b <kBf16S,
-// kOne, 2>, K7c <kBf16S, kPair, 4> and K4 <kFull, kPipe, 3>. STEP is the
-// softmax, BODY the loop over the unmasked range. What bound the first K3
-// (the synchronous design below) was its staging and its products: every
-// 64-key sub-tile was staged by 16-byte loads between two block barriers
-// with no product running, at one 256-thread block per SM, and both
-// products ran on mma.sync, which cannot reach the tensor cores' rate.
-// The other four are K3's function or K3's with another softmax, so they
-// lost the same way (on an H100, 4.7-5.6x the time of PyTorch's
-// scaled_dot_product_attention against K3's 1.46x) and take K3's design:
-// - Host: a tensor map per Q, K, V over (heads*seq, 128) bf16 with 64 x 64
-//   boxes (one box row is 128 B) and 128-byte swizzle, D = 128 taking two
-//   boxes; cuTensorMapEncodeTiled is reached through the runtime
+// kOne, 2>, K7c <kBf16S, kPair, 4>, K7a <kFull, kPair, K7A_STAGES> and K4
+// <kFull, kPipe, 3>. STEP is the softmax, BODY the loop over the unmasked
+// range. What bound the first K3 (the synchronous design below) was its
+// staging and its products: every 64-key sub-tile was staged by 16-byte
+// loads between two block barriers with no product running, at one
+// 256-thread block per SM, and both products ran on mma.sync, which cannot
+// reach the tensor cores' rate. The other five are K3's function or K3's
+// with another softmax, so they lost the same way (on an H100, 4.4-5.6x
+// the time of PyTorch's scaled_dot_product_attention against K3's 1.46x)
+// and take K3's design:
+// - Host: a rank-3 tensor map per Q, K, V over (heads, seq, 128) bf16 with
+//   64 x 64 x 1 boxes (one box row is 128 B) and 128-byte swizzle, D = 128
+//   taking two boxes; cuTensorMapEncodeTiled is reached through the runtime
 //   (cudaGetDriverEntryPoint*), so the library needs no -lcuda. The maps
 //   are encoded on every call and passed as __grid_constant__ parameters.
 //   Each instance has its own shared-memory attribute, set once per device.
+// - Any seq: a box is addressed (column, row in its head, head), so one
+//   that reaches past a head's last row is filled with zeros (OOB fill
+//   NONE) and never reads the next head's rows. The mbarrier still counts
+//   the whole box, fill included: a transaction count of the in-range
+//   bytes alone never completes (checked on the H100 at seq 72, 100, 200
+//   and 520, where a wrong count would hang the phase that runs them).
+//   Zero keys are exact for causal attention, where every key past seq lies
+//   above a real row's diagonal and is masked; a non-causal run masks keys
+//   past seq - 1 in its last k-block. Rows past seq are computed on zeros
+//   and never stored.
 // - One block per (q-block, head) with one consumer warpgroup per 64 query
 //   rows (block_q 128: two; 64: one). Thread 0 loads the block's Q once
 //   and keeps K/V in a ring of STAGES stages of 64 keys, each behind a
@@ -89,31 +100,32 @@
 //   softmax_b, whose packed p pairs are the A fragment as they stand. No
 //   generic-proxy write reaches the shared memory that TMA and wgmma use,
 //   so no proxy fence is needed.
-// - The logical tiling is the caller's (block_q, block_k) as on the TPU: a
-//   causal q-block processes k-blocks [0, diag_stop(i)), the first n_full =
-//   i*block_q/block_k without a mask and the rest masked, so the FLOPs
-//   performed are exactly causal_flops(seq, H, D, block_q, block_k);
-//   heavier causal q-blocks are scheduled first. The ring runs over the
-//   sub-tiles of every range with one counter, so its stage and parity
-//   carry over from one loop into the next.
+// - The logical tiling is the caller's (block_q, block_k) as on the TPU,
+//   over ceil(seq/block_q) q-blocks and ceil(seq/block_k) k-blocks: a
+//   causal q-block processes k-blocks [0, diag_stop(i)), cut at the last
+//   k-block, the first n_full = i*block_q/block_k without a mask and the
+//   rest masked, so the FLOPs performed are exactly causal_flops(seq, H, D,
+//   block_q, block_k); heavier causal q-blocks are scheduled first. The
+//   ring runs over the sub-tiles of every range with one counter, so its
+//   stage and parity carry over from one loop into the next.
 // - kOne, K3's body, per sub-tile: S, wait, softmax, PV, wait. PV is
 //   waited for at the end: a wgmma chain in flight whose accumulators
 //   another instruction defines is serialized by ptxas (C7515), so every
 //   register a chain in flight reads or writes is final before
 //   wgmma.fence, with fence_regs after each wait. Every body runs the
 //   masked tail (and what its own loop leaves) on this one.
-// - kPair, K7c's body (the reference's body2), over the unmasked range two
-//   sub-tiles kt, kt+1 at a time with two S accumulator sets: S_a issued
-//   and committed, S_b issued (behind a wgmma.fence of its own) and
-//   committed, wgmma.wait_group 1 so S_a has landed, softmax_a while S_b
-//   runs on the tensor cores, PV_a, wait_group 0 (S_b and PV_a),
+// - kPair, K7c's and K7a's body (the reference's body2), over the
+//   unmasked range two sub-tiles kt, kt+1 at a time with two S accumulator
+//   sets: S_a issued and committed, S_b issued (behind a wgmma.fence of its
+//   own) and committed, wgmma.wait_group 1 so S_a has landed, softmax_a
+//   while S_b runs on the tensor cores, PV_a, wait_group 0 (S_b and PV_a),
 //   softmax_b, PV_b, wait. A pair holds two stages and its second S set
-//   (156 registers a thread against K3's 126) leaves one block an SM, so
-//   its ring has four stages (161 KB). Then an odd leftover sub-tile and
-//   the masked tail run K3's body: the reference's body1 and tail. K7c
-//   rounds each S set to bf16 as its softmax starts (lazy rounding); the
-//   reference rounds both before either softmax, the same values in
-//   another order of issue.
+//   (K7c: 156 registers a thread against K3's 126) leaves one block an SM,
+//   so its ring has more stages (K7c four, 161 KB). Then an odd leftover
+//   sub-tile and the masked tail run K3's body: the reference's body1 and
+//   tail. K7c rounds each S set to bf16 as its softmax starts (lazy
+//   rounding); the reference rounds both before either softmax, the same
+//   values in another order of issue.
 // - kPipe, K4's body (the reference's pipe_body), over the unmasked range
 //   one sub-tile at a time with the next S carried across iterations: S(kt)
 //   has landed; S(kt+1) is issued into the other S set and runs on the
@@ -127,16 +139,16 @@
 //   starts only once PV(kt) lands and S(kt+2) waits on it (K3/K4 0.74 on
 //   the H100); three measured faster than four (1.076 against 1.041).
 // Each instance does, per element, the arithmetic of its synchronous
-// predecessor in the same k16 steps in the same order, so K4 equals K3
-// and K7c equals K7b bit for bit.
+// predecessor in the same k16 steps in the same order, so K4 and K7a equal
+// K3 and K7c equals K7b bit for bit.
 // Not done yet: warp specialisation (a producer warp, setmaxnreg), the next
 // S product overlapped with the current softmax in K3 itself (K4's body at
 // two blocks an SM), persistent blocks, clusters and multicast. In the kOne
 // instances the softmax still runs between the two products with the
 // tensor cores idle, hidden only by a second block on the SM.
 //
-// The synchronous design (K6a, K6b, K7a; and every other kernel before
-// it moved to the Hopper kernel): one block per (q-block, head) with
+// The synchronous design (K6a, K6b; and every other kernel before it
+// moved to the Hopper kernel): one block per (q-block, head) with
 // block_q/16 warps; each warp owns 16 query rows. A warp keeps its Q rows
 // in registers as mma.sync A fragments for the whole kernel, and its f32
 // accumulator (16 x 128), m and l in registers. K and V stream through
@@ -144,29 +156,23 @@
 // fragment reads hit 32 distinct banks). Both products run on tensor cores
 // as mma.sync m16n8k16 bf16 with f32 accumulation; the S accumulator's
 // layout is the PV A-fragment's layout, so p goes from registers to the
-// second product without shared memory. The tiling, n_full, diag_stop and
-// the order of q-blocks are K3's.
+// second product without shared memory. The tiling, diag_stop and the
+// order of q-blocks are K3's; rows past seq load as zeros and are not
+// stored.
 // K6a and K6b are one kernel template (flash_fwd_kernel) with a different
 // step per sub-tile. Both run every sub-tile of [0, hi) unmasked; K6b
 // stages only K and adds the scores of sub-tiles 0 and 1 of each k-block
 // into accumulator n-tiles 0-7 and 8-15 (the same fragment layout), while
 // the score products of the block's other sub-tiles still run (mma16816 is
-// asm volatile).
-// K7a (flash_fwd_paired_kernel) pairs sub-tiles over the unmasked range.
-// The reference pairs k-blocks, its unit of update; the port's unit is the
-// 64-key sub-tile, so one stage call fills two sub-tiles of K and V
-// (69,632 B of dynamic shared memory) behind one pair of barriers, both
-// score products are issued, then softmax+PV runs on the first S set and
-// on the second. An odd leftover sub-tile runs alone, then the masked tail
-// as K3 runs it. Per element the arithmetic is K3's, so K7a equals K3.
+// asm volatile). Zero keys past seq add exact zeros: K6a's p is
+// bf16(0*scale*0.001) = 0 against a zero V row, K6b adds scores of 0.
 
-#include <cuda.h>  // CUtensorMap and its enums, for the tensor maps
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <atomic>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -176,9 +182,38 @@ constexpr int LDS = D + 8;    // padded shared row, in bf16 elements
 constexpr int MAX_WARPS = 8;  // block_q <= 128
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float STUB_SCALE = 0.001f;  // softmax_stub's p = bf16((s*scale)*0.001)
-constexpr int PIPE_SMEM = 4 * KT * LDS * 2;  // K7a: two sub-tiles of K and V, bytes
 
 enum class Step { kFull, kBf16Exp, kStub, kQkOnly, kBf16S };
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The masked path's test: key kpos is hidden from fragment row qrow + r*8
+// when it lies above the row's diagonal or past seq (a partial last
+// k-block's zeros). diag_off is a kernel parameter: 0 for a causal run,
+// NO_DIAGONAL for a non-causal one, whose keys only seq bounds. For a row
+// of seq the bound at seq adds nothing to the causal mask; rows past seq
+// are never stored. Taking the offset and seq from the kernel's parameters
+// keeps both out of registers and gives the compiler no causal branch to
+// duplicate the masked path on (either costs K3 its second block an SM or
+// a few percent on the H100).
+constexpr int NO_DIAGONAL = 1 << 30;
+__device__ __forceinline__ bool hidden(int kpos, int qrow, int r, int diag_off, int seq) {
+  return kpos > qrow + r * 8 + diag_off || kpos >= seq;
+}
+
+// The k-blocks q-block i processes, [0, hi), and how many of them run
+// unmasked, n_full: causal, through diag_stop(i) as the TPU kernel computes
+// it, cut at the last k-block, the blocks below the diagonal of the
+// q-block's first row unmasked; otherwise every k-block, with a partial
+// last one masked.
+struct KRange {
+  int hi, n_full;
+};
+__device__ __forceinline__ KRange k_range(int i, int seq, int block_q, int block_k, int causal) {
+  const int n_k = cdiv(seq, block_k);
+  if (!causal) return {n_k, seq / block_k};
+  return {min(cdiv((i + 1) * block_q, block_k), n_k), (i * block_q) / block_k};
+}
 
 // asm volatile: the compiler keeps every product, including the score
 // products whose result qk_only discards (sub-tiles past the first 128 keys
@@ -272,12 +307,13 @@ __device__ __forceinline__ void pv(const float (&p)[KT / 8][4],
 // log2 domain. BF16EXP true (K5): scale is 1/sqrt(D), m is in natural-log
 // units, p = bf16(exp(bf16(s - m_new))) and l sums that p. The fragment
 // layout is mma.sync's m16n8 C layout, which is also a warp's slice of a
-// wgmma m64nN accumulator, so the Hopper kernel (K3, K4, K5) runs this step as
-// it is.
+// wgmma m64nN accumulator, so the Hopper kernel runs this step as it is.
+// MASKED hides the keys hidden() names.
 template <bool BF16EXP, bool MASKED>
 __device__ __forceinline__ void online_softmax(float (&s)[KT / 8][4], float (&acc)[D / 8][4],
                                                float (&m)[2], float (&l)[2], float scale,
-                                               int qrow, int k0, int lane) {
+                                               int qrow, int k0, int lane, int diag_off,
+                                               int seq) {
   const int t = lane & 3;
   float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -286,11 +322,8 @@ __device__ __forceinline__ void online_softmax(float (&s)[KT / 8][4], float (&ac
     for (int e = 0; e < 4; ++e) {
       // K5 keeps the product rounded, as the reference's s = dot*scale is
       float v = BF16EXP ? __fmul_rn(s[nt][e], scale) : s[nt][e] * scale;
-      if (MASKED) {
-        const int qpos = qrow + (e >> 1) * 8;
-        const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
-        if (kpos > qpos) v = -INFINITY;
-      }
+      if (MASKED && hidden(k0 + nt * 8 + 2 * t + (e & 1), qrow, e >> 1, diag_off, seq))
+        v = -INFINITY;
       s[nt][e] = v;
       mx[e >> 1] = fmaxf(mx[e >> 1], v);
     }
@@ -329,23 +362,13 @@ __device__ __forceinline__ void online_softmax(float (&s)[KT / 8][4], float (&ac
   }
 }
 
-// K3's online_softmax, then acc += bf16(p) . V on mma.sync (K7a).
-template <bool MASKED>
-__device__ __forceinline__ void softmax_pv(float (&s)[KT / 8][4],
-                                           const __nv_bfloat16* __restrict__ Vs,
-                                           float (&acc)[D / 8][4], float (&m)[2],
-                                           float (&l)[2], float scale, int qrow, int k0,
-                                           int lane) {
-  online_softmax<false, MASKED>(s, acc, m, l, scale, qrow, k0, lane);
-  pv(s, Vs, acc, lane);
-}
-
 // K7b's and K7c's scores_b on packed bf16 pairs: sb[nt][r] = bf16(s*scale) of row
 // g + 8r, columns 2t and 2t+1 of n-tile nt, with bf16 -inf where MASKED
 // hides a key.
 template <bool MASKED>
 __device__ __forceinline__ void scores_b(const float (&s)[KT / 8][4], uint32_t (&sb)[KT / 8][2],
-                                         float scale, int qrow, int k0, int lane) {
+                                         float scale, int qrow, int k0, int lane, int diag_off,
+                                         int seq) {
   const int t = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < KT / 8; ++nt) {
@@ -354,11 +377,8 @@ __device__ __forceinline__ void scores_b(const float (&s)[KT / 8][4], uint32_t (
     for (int e = 0; e < 4; ++e) {
       // the product kept rounded, as the reference's s*scale is
       v[e] = __fmul_rn(s[nt][e], scale);
-      if (MASKED) {
-        const int qpos = qrow + (e >> 1) * 8;
-        const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
-        if (kpos > qpos) v[e] = -INFINITY;
-      }
+      if (MASKED && hidden(k0 + nt * 8 + 2 * t + (e & 1), qrow, e >> 1, diag_off, seq))
+        v[e] = -INFINITY;
     }
     sb[nt][0] = bits(__floats2bfloat162_rn(v[0], v[1]));
     sb[nt][1] = bits(__floats2bfloat162_rn(v[2], v[3]));
@@ -410,53 +430,74 @@ __device__ __forceinline__ void softmax_b(uint32_t (&sb)[KT / 8][2], float (&acc
   }
 }
 
-// A warp's 16 query rows into registers as mma A fragments.
-__device__ __forceinline__ void load_q(const __nv_bfloat16* __restrict__ q, int qrow,
+// A warp's 16 query rows into registers as mma A fragments; a row past
+// seq is zeros.
+__device__ __forceinline__ void load_q(const __nv_bfloat16* __restrict__ q, int qrow, int seq,
                                        uint32_t (&qa)[D / 16][4], int lane) {
   const int t = lane & 3;
+  const bool in0 = qrow < seq, in1 = qrow + 8 < seq;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const __nv_bfloat16* p0 = q + (size_t)qrow * D + kk * 16 + 2 * t;
     const __nv_bfloat16* p1 = p0 + 8 * D;
-    qa[kk][0] = ld_u32(p0);
-    qa[kk][1] = ld_u32(p1);
-    qa[kk][2] = ld_u32(p0 + 8);
-    qa[kk][3] = ld_u32(p1 + 8);
+    qa[kk][0] = in0 ? ld_u32(p0) : 0u;
+    qa[kk][1] = in1 ? ld_u32(p1) : 0u;
+    qa[kk][2] = in0 ? ld_u32(p0 + 8) : 0u;
+    qa[kk][3] = in1 ? ld_u32(p1 + 8) : 0u;
   }
 }
 
-// ROWS rows of K (and of V, unless qk_only) from device memory into the
-// padded shared tiles, 16 bytes a thread; barriers on both sides so the
-// previous sub-tile is fully consumed and this one fully written. K7a
-// stages two sub-tiles (ROWS = 2*KT) at once, behind one pair of barriers.
-template <bool WITH_V = true, int ROWS = KT>
-__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ k,
-                                      const __nv_bfloat16* __restrict__ v,
-                                      __nv_bfloat16* Ks, __nv_bfloat16* Vs, int k0) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < ROWS * D / 8; idx += blockDim.x) {
+// The rows of one 64-key sub-tile of K (and of V) into the padded shared
+// tiles, 16 bytes a thread; BOUNDED: a row past seq as zeros.
+template <bool WITH_V, bool BOUNDED>
+__device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ k,
+                                           const __nv_bfloat16* __restrict__ v,
+                                           __nv_bfloat16* Ks, __nv_bfloat16* Vs, int k0,
+                                           int seq) {
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int idx = threadIdx.x; idx < KT * D / 8; idx += blockDim.x) {
     const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    const bool in = !BOUNDED || k0 + r < seq;
     *reinterpret_cast<uint4*>(&Ks[r * LDS + c]) =
-        *reinterpret_cast<const uint4*>(&k[(size_t)(k0 + r) * D + c]);
+        in ? *reinterpret_cast<const uint4*>(&k[(size_t)(k0 + r) * D + c]) : zero;
     if (WITH_V)
       *reinterpret_cast<uint4*>(&Vs[r * LDS + c]) =
-          *reinterpret_cast<const uint4*>(&v[(size_t)(k0 + r) * D + c]);
+          in ? *reinterpret_cast<const uint4*>(&v[(size_t)(k0 + r) * D + c]) : zero;
   }
+}
+
+// One 64-key sub-tile of K (and of V, unless qk_only) from device memory
+// into the padded shared tiles, a row past seq as zeros (only the
+// sub-tile that seq cuts tests the bound); barriers on both sides so the
+// previous sub-tile is fully consumed and this one fully written.
+template <bool WITH_V = true>
+__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ k,
+                                      const __nv_bfloat16* __restrict__ v,
+                                      __nv_bfloat16* Ks, __nv_bfloat16* Vs, int k0, int seq) {
+  __syncthreads();
+  if (k0 + KT <= seq)
+    stage_rows<WITH_V, false>(k, v, Ks, Vs, k0, seq);
+  else
+    stage_rows<WITH_V, true>(k, v, Ks, Vs, k0, seq);
   __syncthreads();
 }
 
-// o = bf16(acc * inv) for a warp's 16 rows; inv = 1/l summed over the
+// o = bf16(acc * inv) for a warp's 16 rows, each only if it is a row of
+// seq (rows qrow and qrow + 8 may straddle it); inv = 1/l summed over the
 // quad, or 1 for the stubs.
-__device__ __forceinline__ void store_out(__nv_bfloat16* __restrict__ o, int qrow,
+__device__ __forceinline__ void store_out(__nv_bfloat16* __restrict__ o, int qrow, int seq,
                                           const float (&acc)[D / 8][4], const float (&inv)[2],
                                           int lane) {
   const int t = lane & 3;
+  const bool in0 = qrow < seq, in1 = qrow + 8 < seq;
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt) {
     __nv_bfloat16* out = o + (size_t)qrow * D + nt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(out) = pack_bf16(acc[nt][0] * inv[0], acc[nt][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(out + 8 * D) =
-        pack_bf16(acc[nt][2] * inv[1], acc[nt][3] * inv[1]);
+    if (in0)
+      *reinterpret_cast<uint32_t*>(out) = pack_bf16(acc[nt][0] * inv[0], acc[nt][1] * inv[0]);
+    if (in1)
+      *reinterpret_cast<uint32_t*>(out + 8 * D) =
+          pack_bf16(acc[nt][2] * inv[1], acc[nt][3] * inv[1]);
   }
 }
 
@@ -490,19 +531,18 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int qrow = i * block_q + warp * 16 + (lane >> 2);
 
   uint32_t qa[D / 16][4];
-  load_q(q, qrow, qa, lane);
+  load_q(q, qrow, seq, qa, lane);
   float acc[D / 8][4];
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   float s[KT / 8][4];
 
-  // diag_stop(i), in k-blocks, as the TPU kernel computes it
-  const int hi = causal ? ((i + 1) * block_q + block_k - 1) / block_k : seq / block_k;
+  const int hi = k_range(i, seq, block_q, block_k, causal).hi;
   const int sub = block_k / KT;
 
   // every sub-tile of [0, hi) with no mask, no m, no l
   for (int kt = 0; kt < hi * sub; ++kt) {
-    stage<!QK>(k, v, Ks, Vs, kt * KT);
+    stage<!QK>(k, v, Ks, Vs, kt * KT, seq);
     scores(qa, Ks, s, lane);
     if constexpr (QK) {
       const int part = kt % sub;  // 0, 1: the block's first 128 keys
@@ -526,76 +566,21 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
   }
   const float one[2] = {1.f, 1.f};
-  store_out(o, qrow, acc, one, lane);
-}
-
-// K7a (K3's step, scale*log2e): over the unmasked range, pairs of
-// sub-tiles staged together (K rows 0-127 then V rows 0-127 in dynamic
-// shared memory), both score products issued before either softmax; then
-// an odd leftover sub-tile alone; then the masked tail as K3 runs it.
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-flash_fwd_paired_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                        int seq, int block_q, int block_k, int causal, float scale) {
-  extern __shared__ uint4 smem_raw[];  // 16-byte aligned
-  __nv_bfloat16* const Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* const Vs = Ks + 2 * KT * LDS;
-
-  const int i = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const size_t head = (size_t)blockIdx.y * seq * D;
-  q += head;
-  k += head;
-  v += head;
-  o += head;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int qrow = i * block_q + warp * 16 + (lane >> 2);
-
-  uint32_t qa[D / 16][4];
-  load_q(q, qrow, qa, lane);
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float sa[KT / 8][4], sb[KT / 8][4];  // S of the pair's first and second sub-tile
-
-  const int hi = causal ? ((i + 1) * block_q + block_k - 1) / block_k : seq / block_k;
-  const int n_full = causal ? (i * block_q) / block_k : hi;
-  const int sub = block_k / KT;
-  const int nf = n_full * sub;  // unmasked sub-tiles
-
-  int kt = 0;
-  for (; kt + 1 < nf; kt += 2) {  // body2
-    stage<true, 2 * KT>(k, v, Ks, Vs, kt * KT);
-    scores(qa, Ks, sa, lane);
-    scores(qa, Ks + KT * LDS, sb, lane);
-    softmax_pv<false>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
-    softmax_pv<false>(sb, Vs + KT * LDS, acc, m, l, scale, qrow, (kt + 1) * KT, lane);
-  }
-  if (kt < nf) {  // body1: the odd leftover
-    stage(k, v, Ks, Vs, kt * KT);
-    scores(qa, Ks, sa, lane);
-    softmax_pv<false>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
-    ++kt;
-  }
-  for (; kt < hi * sub; ++kt) {  // the diagonal tail
-    stage(k, v, Ks, Vs, kt * KT);
-    scores(qa, Ks, sa, lane);
-    softmax_pv<true>(sa, Vs, acc, m, l, scale, qrow, kt * KT, lane);
-  }
-  finish_l(l);
-  store_out(o, qrow, acc, l, lane);
+  store_out(o, qrow, seq, acc, one, lane);
 }
 
 // ---------------------------------------------------------------------------
-// The Hopper kernel (K3, K4, K5, K7b, K7c): a TMA ring of K/V sub-tiles
-// and both products on wgmma.
+// The Hopper kernel (K3, K4, K5, K7a, K7b, K7c): a TMA ring of K/V
+// sub-tiles and both products on wgmma.
 
 // The loop over the unmasked range: one sub-tile a trip (K3, K5, K7b), two
-// with two S sets (K7c), or one with the next S carried across trips (K4).
+// with two S sets (K7a, K7c), or one with the next S carried across trips
+// (K4).
 enum class Body { kOne, kPair, kPipe };
 
 constexpr int K3_STAGES = 2;                 // K/V stages in the kOne instances' ring
 constexpr int K7C_STAGES = 4;                // K7c's: a pair holds two at once
+constexpr int K7A_STAGES = 4;                // K7a's: four measured faster than three
 constexpr int K4_STAGES = 3;                 // K4's: kt+1 resident under PV(kt), kt+2 loading
 constexpr int BOX_COLS = 64;                 // a TMA box: 64 bf16 = one 128-byte swizzled row
 constexpr int HALF_BYTES = KT * BOX_COLS * 2;  // one 64 x 64 box: 8 KB
@@ -603,44 +588,15 @@ constexpr int TILE_BYTES = 2 * HALF_BYTES;   // 64 rows x D: two boxes, 16 KB
 constexpr int ATOM_BYTES = 1024;             // 8 rows x 128 B: the 128-byte swizzle atom
 constexpr int MAX_WG = 2;                    // consumer warpgroups: block_q 128
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// One 64-row x 64-column box at (col, row) of a 2-D tensor map into shared
-// memory, 128-byte swizzled; completion lands on bar.
+// One 64-row x 64-column box at (col, row, head) of a (heads, seq, D)
+// tensor map into shared memory, 128-byte swizzled, rows past seq filled
+// with zeros; completion lands on bar.
 __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int col, int row,
-                                        uint32_t bar) {
+                                        int head, uint32_t bar) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head), "r"(bar)
       : "memory");
 }
 
@@ -757,10 +713,10 @@ template <Step STEP, bool MASKED>
 __device__ __forceinline__ void softmax_step(float (&s)[KT / 8][4], uint32_t (&pa)[KT / 16][4],
                                              float (&acc)[D / 8][4], float (&m)[2],
                                              float (&l)[2], float scale, int qrow, int k0,
-                                             int lane) {
+                                             int lane, int diag_off, int seq) {
   if constexpr (STEP == Step::kBf16S) {
     uint32_t sb[KT / 8][2];
-    scores_b<MASKED>(s, sb, scale, qrow, k0, lane);
+    scores_b<MASKED>(s, sb, scale, qrow, k0, lane, diag_off, seq);
     softmax_b(sb, acc, m, l);
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk) {
@@ -770,7 +726,8 @@ __device__ __forceinline__ void softmax_step(float (&s)[KT / 8][4], uint32_t (&p
       pa[kk][3] = sb[2 * kk + 1][1];
     }
   } else {
-    online_softmax<STEP == Step::kBf16Exp, MASKED>(s, acc, m, l, scale, qrow, k0, lane);
+    online_softmax<STEP == Step::kBf16Exp, MASKED>(s, acc, m, l, scale, qrow, k0, lane, diag_off,
+                                                   seq);
   }
 }
 
@@ -785,14 +742,14 @@ __device__ __forceinline__ void pack_step(const float (&s)[KT / 8][4],
 }
 
 // K3 <kFull, kOne, K3_STAGES>, K5 <kBf16Exp, kOne, K3_STAGES>, K7b
-// <kBf16S, kOne, K3_STAGES>, K7c <kBf16S, kPair, K7C_STAGES> and K4 <kFull,
-// kPipe, K4_STAGES>. Dynamic shared memory, 1024-aligned: STAGES
+// <kBf16S, kOne, K3_STAGES>, K7c <kBf16S, kPair, K7C_STAGES>, K7a <kFull,
+// kPair, K7A_STAGES> and K4 <kFull, kPipe, K4_STAGES>. Dynamic shared memory, 1024-aligned: STAGES
 // K tiles, STAGES V tiles, then Q (one 16 KB tile per warpgroup). Thread 0
 // drives the ring: it loads Q and the first STAGES sub-tiles, and refills
 // the stage of sub-tile j with j+STAGES once every warp has arrived on that
 // stage's "empty" barrier (release(j)). A warp arrives once its PV of j
 // has been waited for and its next S is issued (kOne: has landed).
-// kPair (K7c) runs the unmasked range two sub-tiles a body with two S
+// kPair (K7a, K7c) runs the unmasked range two sub-tiles a body with two S
 // accumulator sets: S_a and S_b are issued, S_b runs on the tensor cores
 // while softmax_a runs, then PV_a, then softmax_b and PV_b. kPipe (K4)
 // runs it one sub-tile a trip, S of the next on the tensor cores while
@@ -802,7 +759,7 @@ __global__ void __launch_bounds__(MAX_WG * 128, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                       int seq, int block_q, int block_k, int causal, float scale) {
+                       int seq, int block_q, int block_k, int diag_off, float scale) {
   extern __shared__ uint4 smem_raw[];  // aligned to 1024 below
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], qbar;
   const uint32_t raw = smem_u32(smem_raw);
@@ -811,15 +768,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t q_tiles = base + 2 * STAGES * TILE_BYTES;
 
   const int i = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int row0 = blockIdx.y * seq;          // the head's first row in the (H*S, D) maps
+  const int head = blockIdx.y;
   const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qrow = i * block_q + warp * 16 + (lane >> 2);
 
-  // diag_stop(i) and n_full, in k-blocks, as the TPU kernel computes them
-  const int hi = causal ? ((i + 1) * block_q + block_k - 1) / block_k : seq / block_k;
-  const int n_full = causal ? (i * block_q) / block_k : hi;
+  const KRange range = k_range(i, seq, block_q, block_k, diag_off == 0);
   const int sub = block_k / KT;
-  const int n_tiles = hi * sub, n_unmasked = n_full * sub;
+  const int n_tiles = range.hi * sub, n_unmasked = range.n_full * sub;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -836,8 +791,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const uint32_t bar = smem_u32(&full[s]);
     mbar_expect_tx(bar, 2 * TILE_BYTES);
     for (int h = 0; h < 2; ++h) {
-      tma_box(k_tiles + s * TILE_BYTES + h * HALF_BYTES, &kmap, h * BOX_COLS, row0 + kt * KT, bar);
-      tma_box(v_tiles + s * TILE_BYTES + h * HALF_BYTES, &vmap, h * BOX_COLS, row0 + kt * KT, bar);
+      tma_box(k_tiles + s * TILE_BYTES + h * HALF_BYTES, &kmap, h * BOX_COLS, kt * KT, head, bar);
+      tma_box(v_tiles + s * TILE_BYTES + h * HALF_BYTES, &vmap, h * BOX_COLS, kt * KT, head, bar);
     }
   };
   // this warp is done with sub-tile j's stage; thread 0 refills it with
@@ -854,11 +809,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   if (threadIdx.x == 0) {
     const uint32_t bar = smem_u32(&qbar);
-    mbar_expect_tx(bar, block_q * D * 2);
+    mbar_expect_tx(bar, block_q * D * 2);  // whole boxes, zero fill included
     for (int r = 0; r < block_q / 64; ++r)
       for (int h = 0; h < 2; ++h)
         tma_box(q_tiles + r * TILE_BYTES + h * HALF_BYTES, &qmap, h * BOX_COLS,
-                row0 + i * block_q + r * 64, bar);
+                i * block_q + r * 64, head, bar);
     for (int kt = 0; kt < STAGES && kt < n_tiles; ++kt) load_kv(kt);
   }
 
@@ -901,7 +856,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_commit();
       wgmma_wait<1>();  // S_a has landed; S_b runs on while softmax_a does
       fence_regs(s);
-      softmax_step<STEP, false>(s, pa, acc, m, l, scale, qrow, kt * KT, lane);
+      softmax_step<STEP, false>(s, pa, acc, m, l, scale, qrow, kt * KT, lane, diag_off, seq);
       pack_step<STEP>(s, pa);
       fence_regs(acc);
       wgmma_fence();
@@ -911,7 +866,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(s2);
       fence_regs(acc);
       release(kt);
-      softmax_step<STEP, false>(s2, pa, acc, m, l, scale, qrow, (kt + 1) * KT, lane);
+      softmax_step<STEP, false>(s2, pa, acc, m, l, scale, qrow, (kt + 1) * KT, lane,
+                                diag_off, seq);
       pack_step<STEP>(s2, pa);
       fence_regs(acc);
       wgmma_fence();
@@ -935,7 +891,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_fence();
       qk_wgmma(nxt, q_tile, k_tiles + nx * TILE_BYTES);
       wgmma_commit();
-      softmax_step<STEP, false>(cur, pa, acc, m, l, scale, qrow, j * KT, lane);
+      softmax_step<STEP, false>(cur, pa, acc, m, l, scale, qrow, j * KT, lane, diag_off, seq);
       pack_step<STEP>(cur, pa);
       fence_regs(acc);
       wgmma_fence();
@@ -968,9 +924,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (BODY != Body::kPipe || kt + 1 != n_unmasked) scores_landed(s, kt);
     if (kt > 0) release(kt - 1);
     if (kt < n_unmasked)  // below the diagonal: no mask
-      softmax_step<STEP, false>(s, pa, acc, m, l, scale, qrow, kt * KT, lane);
+      softmax_step<STEP, false>(s, pa, acc, m, l, scale, qrow, kt * KT, lane, diag_off, seq);
     else  // the diagonal tail
-      softmax_step<STEP, true>(s, pa, acc, m, l, scale, qrow, kt * KT, lane);
+      softmax_step<STEP, true>(s, pa, acc, m, l, scale, qrow, kt * KT, lane, diag_off, seq);
     pack_step<STEP>(s, pa);
     // the rescaled acc and p's fragments are final before the products
     // start: a register an instruction defines inside the wgmma chain
@@ -986,13 +942,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_regs(acc);
   }
   finish_l(l);
-  store_out(o + (size_t)row0 * D, qrow, acc, l, lane);
+  store_out(o + (size_t)head * seq * D, qrow, seq, acc, l, lane);
 }
 
+// Any seq: the last q-block and k-block may be partial.
 bool bad_shape(int heads, int seq, int block_q, int block_k) {
   return heads <= 0 || seq <= 0 || block_q <= 0 || block_q % 16 ||
-         block_q > MAX_WARPS * 16 || block_k <= 0 || block_k % KT || seq % block_q ||
-         seq % block_k;
+         block_q > MAX_WARPS * 16 || block_k <= 0 || block_k % KT;
 }
 
 const float SCALE = (float)(1.0 / sqrt((double)D));  // the reference's f32 scale
@@ -1003,7 +959,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int heads, int 
            int block_q, int block_k, int causal, void* stream) {
   if (bad_shape(heads, seq, block_q, block_k) || (STEP == Step::kQkOnly && block_k < D))
     return cudaErrorInvalidValue;
-  dim3 grid(seq / block_q, heads);
+  dim3 grid(cdiv(seq, block_q), heads);
   flash_fwd_kernel<STEP><<<grid, (block_q / 16) * 32, 0, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq, block_q,
@@ -1011,67 +967,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int heads, int 
   return (int)cudaGetLastError();
 }
 
-using FlashKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
-                             __nv_bfloat16*, int, int, int, int, float);
-
-// K7a: two sub-tiles of K and V in dynamic shared memory, above the 48 KB
-// a kernel gets without asking.
-int launch_two_stage(FlashKernel kernel, const void* q, const void* k, const void* v, void* o,
-                     int heads, int seq, int block_q, int block_k, int causal, float scale,
-                     void* stream) {
-  if (bad_shape(heads, seq, block_q, block_k)) return cudaErrorInvalidValue;
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PIPE_SMEM);
-  if (attr != cudaSuccess) return (int)attr;
-  dim3 grid(seq / block_q, heads);
-  kernel<<<grid, (block_q / 16) * 32, PIPE_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq, block_q,
-      block_k, causal, scale);
-  return (int)cudaGetLastError();
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once through the runtime, so the
-// library links without -lcuda; null where it cannot be found.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A tensor map over a contiguous (rows, D) bf16 array: 64 x 64 boxes (one
-// box row is 128 B), 128-byte swizzle, as the wgmma descriptors read it.
-bool tile_map(CUtensorMap* map, const void* ptr, int rows) {
+// A tensor map over a contiguous (heads, seq, D) bf16 array: 64 x 64 x 1
+// boxes (one box row is 128 B), 128-byte swizzle, as the wgmma descriptors
+// read it. A box is addressed within one head, so rows past seq are filled
+// with zeros (FLOAT_OOB_FILL_NONE), never read from the next head.
+bool tile_map(CUtensorMap* map, const void* ptr, int heads, int seq) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t box[2] = {BOX_COLS, KT};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)seq, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)seq * D * 2};
+  const cuuint32_t box[3] = {BOX_COLS, KT, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
-
-constexpr int MAX_DEVICES = 64;
 
 // The Hopper kernel's dynamic shared memory: 1 KB alignment slack, a K
 // and a V tile per stage, a Q tile per warpgroup.
@@ -1097,26 +1008,25 @@ cudaError_t allow_wgmma_smem() {
   return err;
 }
 
-// K3, K4, K5, K7b, K7c: block_q 64 or 128 (whole warpgroups), block_k a multiple of
-// 64. No fallback: a map that cannot be encoded or a refused launch is an
-// error the caller raises.
+// K3, K4, K5, K7a, K7b, K7c: block_q 64 or 128 (whole warpgroups), block_k
+// a multiple of 64, any seq. No fallback: a map that cannot be encoded or a
+// refused launch is an error the caller raises.
 template <Step STEP, Body BODY, int STAGES>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int heads, int seq,
                  int block_q, int block_k, int causal, float scale, void* stream) {
   if (bad_shape(heads, seq, block_q, block_k) || (block_q != 64 && block_q != 128))
     return cudaErrorInvalidValue;
   CUtensorMap maps[3];
-  const int rows = heads * seq;
-  if (!tile_map(&maps[0], q, rows) || !tile_map(&maps[1], k, rows) ||
-      !tile_map(&maps[2], v, rows))
+  if (!tile_map(&maps[0], q, heads, seq) || !tile_map(&maps[1], k, heads, seq) ||
+      !tile_map(&maps[2], v, heads, seq))
     return cudaErrorInvalidValue;
   const cudaError_t attr = allow_wgmma_smem<STEP, BODY, STAGES>();
   if (attr != cudaSuccess) return (int)attr;
   const int smem = wgmma_smem(STAGES, block_q / 64);
-  dim3 grid(seq / block_q, heads);
+  dim3 grid(cdiv(seq, block_q), heads);
   flash_fwd_wgmma_kernel<STEP, BODY, STAGES><<<grid, block_q * 2, smem, (cudaStream_t)stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), seq, block_q, block_k, causal,
-      scale);
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), seq, block_q, block_k,
+      causal ? 0 : NO_DIAGONAL, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1165,8 +1075,8 @@ extern "C" int flash_fwd_pipelined(const void* q, const void* k, const void* v, 
 extern "C" int flash_fwd_paired(const void* q, const void* k, const void* v, void* o,
                                 int heads, int seq, int block_q, int block_k, int causal,
                                 void* stream) {
-  return launch_two_stage(flash_fwd_paired_kernel, q, k, v, o, heads, seq, block_q, block_k,
-                          causal, SCALE_LOG2, stream);
+  return launch_wgmma<Step::kFull, Body::kPair, K7A_STAGES>(q, k, v, o, heads, seq, block_q,
+                                                            block_k, causal, SCALE_LOG2, stream);
 }
 
 extern "C" int flash_fwd_paired16(const void* q, const void* k, const void* v, void* o,

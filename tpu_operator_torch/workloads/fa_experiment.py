@@ -8,11 +8,10 @@ kernel (K3, ``flashattn.make_flash_fn``) with the drift-cancelled
 adjacent-ratio comparator (``timing.adjacent_ratio_stats``), on the tensors
 of ``fa_common.setup``. The modes, each a kernel in ``csrc/flash.cu``:
 
-* ``paired`` (K7a): two 64-key sub-tiles staged behind one pair of
-  barriers, both score products issued before either softmax; K3's
-  function, bit for bit. K7a keeps the synchronous ``mma.sync``
-  structure and K3 is the Hopper kernel (TMA ring, ``wgmma``), so the
-  ratio sets the synchronous structure against it.
+* ``paired`` (K7a): K3's function, bit for bit, on K3's Hopper kernel
+  (TMA ring, ``wgmma``) with K7c's pair loop: two 64-key sub-tiles a
+  body, the second S product on the tensor cores while the first
+  softmax runs. Its ratio reads pairing alone on K3's structure.
 * ``bf16s`` (K7b): the scores rounded to bf16 once and the whole softmax
   run at half width (the reference's ``scores_b``/``soft_b``). It runs on
   K3's Hopper kernel with K3's loop (``block_q`` 64 or 128), so its ratio
@@ -23,7 +22,10 @@ of ``fa_common.setup``. The modes, each a kernel in ``csrc/flash.cu``:
 
 ``experiment_flash`` takes a mode's plain version only for CPU tensors
 (``flashattn.plain_flash``, with ``bf16s=True`` for the two half-width
-modes); for CUDA tensors it launches the mode's kernel or raises. The
+modes); for CUDA tensors it launches the mode's kernel or raises. It
+takes the tilings ``flashattn`` takes (a partial last block at a ``seq``
+the reference's probe takes); ``build``, as the reference instrument's
+own, takes only tilings that divide ``seq``. The
 reference's 512/2048 blocks are TPU VMEM tiles; the port runs at its own
 default 128/128. Seq 8192, 8 heads and head_dim 128 are the reference's.
 Prints the card's name, then one JSON line: each candidate's ``max_err``

@@ -19,6 +19,14 @@ tensor cores while the current softmax runs. K6a and K6b keep the
 synchronous ``mma.sync`` structure (``block_q`` a multiple of 16 up to
 128). Each has a plain version below in torch ops that follows the
 reference per ``block_k`` block.
+
+Every kernel takes any ``seq`` the reference's probe takes
+(``seq % 8 == 0`` or ``seq <= 256``), also where the blocks do not divide
+it: the last q-block and k-block are then partial. The kernels fill rows
+past ``seq`` with zeros and store no row past it; a causal run needs no
+more (every key past ``seq`` lies above a real row's diagonal), a
+non-causal one masks the keys past ``seq - 1`` in its last k-block. The
+plain versions take the same tiling by clipped slices.
 ``flash_attention`` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the variant's kernel or raises. ``run_flashattn_breakdown``
 times the instruments and attributes K3's time to the matmuls, the softmax,
@@ -51,13 +59,17 @@ LANES = 128  # head_dim the kernel takes
 BLOCK_Q_CAP = 128
 BLOCK_K_CAP = 128
 KERNEL_KEY_TILE = 64
-KERNEL_MAX_BLOCK_Q = 128  # K6a, K6b, K7a: block_q/16 warps of 16 rows, at most 8
+KERNEL_MAX_BLOCK_Q = 128  # K6a, K6b: block_q/16 warps of 16 rows, at most 8
 WGMMA_BLOCK_Q = (64, 128)  # the Hopper kernel's: whole warpgroups
 # the launch counters of the kernels that run on the Hopper kernel
 WGMMA_KERNELS = (
-    "flash_fwd", "flash_fwd_pipelined", "flash_fwd_bf16exp", "flash_fwd_bf16s",
-    "flash_fwd_paired16",
+    "flash_fwd", "flash_fwd_pipelined", "flash_fwd_bf16exp", "flash_fwd_paired",
+    "flash_fwd_bf16s", "flash_fwd_paired16",
 )
+# The reference's probe (``_default_block`` with caps 256/1024) tiles every
+# seq that is a multiple of 8, and every seq up to its block cap with one
+# whole-seq block; at any other seq it raises its must-tile error.
+REFERENCE_WHOLE_SEQ_CAP = 256
 
 REFERENCE_VARIANTS = ("full", "pipelined", "softmax_stub", "qk_only", "bf16exp")
 PORTED_VARIANTS = REFERENCE_VARIANTS
@@ -81,10 +93,41 @@ PAIR_US_DIGITS = 5
 
 def diag_stop(i, block_q: int, block_k: int):
     """K-blocks a causal q-block ``i`` must process: through the block
-    containing its last row. The single source for the loop bound of the
-    plain version, the kernel's (``csrc/flash.cu`` computes the same) and
-    the FLOPs accounting."""
+    containing its last row, as the reference computes it."""
     return ((i + 1) * block_q + block_k - 1) // block_k
+
+
+def n_blocks(seq: int, block: int) -> int:
+    """Blocks of ``block`` rows that cover ``seq``, the last one partial
+    where ``block`` does not divide it."""
+    return -(-seq // block)
+
+
+def k_range(i: int, seq: int, block_q: int, block_k: int, causal: bool):
+    """``(hi, n_full)`` of q-block ``i``: it processes k-blocks ``[0, hi)``,
+    the first ``n_full`` without a mask. Causal: ``diag_stop(i)`` cut at the
+    last k-block, and the blocks below the diagonal of the q-block's first
+    row; otherwise every k-block, with a partial last one masked. The
+    single source for the plain versions' loops, the kernels' (``k_range``
+    in ``csrc/flash.cu`` computes the same) and the FLOPs accounting."""
+    n_k = n_blocks(seq, block_k)
+    if not causal:
+        return n_k, seq // block_k
+    return min(diag_stop(i, block_q, block_k), n_k), (i * block_q) // block_k
+
+
+def tiling_ok(seq: int, block_q: int, block_k: int) -> bool:
+    """Whether the port takes ``(block_q, block_k)`` at ``seq``: every
+    tiling that divides ``seq``, and a partial last q-block and k-block at
+    a ``seq`` the reference's probe takes."""
+    divides = seq % block_q == 0 and seq % block_k == 0
+    return divides or seq % 8 == 0 or seq <= REFERENCE_WHOLE_SEQ_CAP
+
+
+def check_tiling(seq: int, block_q: int, block_k: int) -> None:
+    """``tiling_ok`` or the reference's must-tile ``ValueError``."""
+    if not tiling_ok(seq, block_q, block_k):
+        raise ValueError(f"seq={seq} must tile by {block_q}/{block_k}")
 
 
 @dataclass
@@ -140,29 +183,34 @@ def plain_flash(
     K7c (the reference's ``soft_b``): the scores rounded once,
     ``s_b = bf16(s)`` (bf16 -inf where masked), ``m_new = max(m, f32(rowmax
     s_b))``, ``p = exp(s_b - bf16(m_new))`` in bf16, ``l`` sums that ``p``
-    in f32, and the same ``p`` goes into PV."""
+    in f32, and the same ``p`` goes into PV.
+
+    Where the blocks do not divide ``seq`` the last q-block and k-block are
+    the clipped slices that end at ``seq``, as the kernels' zero-filled
+    rows compute them."""
     if bf16exp and bf16s:
         raise ValueError("bf16exp and bf16s are two softmaxes; pick one")
     heads, seq, head_dim = q.shape
     scale = 1.0 / (head_dim**0.5)
-    n_k = seq // block_k
     out = torch.empty_like(q)
-    for i in range(seq // block_q):
+    for i in range(n_blocks(seq, block_q)):
         qb = q[:, i * block_q:(i + 1) * block_q].float()
-        hi = diag_stop(i, block_q, block_k) if causal else n_k
-        n_full = (i * block_q) // block_k if causal else n_k
-        m = torch.full((heads, block_q, 1), float("-inf"), device=q.device)
-        l = torch.zeros((heads, block_q, 1), device=q.device)
-        acc = torch.zeros((heads, block_q, head_dim), device=q.device)
-        qpos = i * block_q + torch.arange(block_q, device=q.device)[:, None]
+        rows = qb.shape[1]  # block_q, or fewer in a partial last q-block
+        hi, n_full = k_range(i, seq, block_q, block_k, causal)
+        m = torch.full((heads, rows, 1), float("-inf"), device=q.device)
+        l = torch.zeros((heads, rows, 1), device=q.device)
+        acc = torch.zeros((heads, rows, head_dim), device=q.device)
+        qpos = i * block_q + torch.arange(rows, device=q.device)[:, None]
         for j in range(hi):
             kb = k[:, j * block_k:(j + 1) * block_k].float()
             vb = v[:, j * block_k:(j + 1) * block_k].float()
             s = torch.matmul(qb, kb.transpose(1, 2)) * scale
             if bf16s:
                 s = s.bfloat16()
-            if j >= n_full:  # only the diagonal tail is masked
-                kpos = j * block_k + torch.arange(block_k, device=q.device)[None, :]
+            # only the diagonal tail is masked; the slice already ends at
+            # seq, so a non-causal partial last block needs no mask
+            if causal and j >= n_full:
+                kpos = j * block_k + torch.arange(kb.shape[1], device=q.device)[None, :]
                 s = s.masked_fill(qpos < kpos, float("-inf"))
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True).float())
             alpha = torch.exp(m - m_new)
@@ -184,15 +232,16 @@ def plain_flash(
 def _plain_unmasked(q, k, block_q: int, block_k: int, causal: bool, step):
     """The stubs' shared loop: for every k-block ``j < hi``, with NO mask
     (as the reference's stubs run), ``acc = step(acc, s, j)`` with ``s``
-    the f32 scores ``q.k^T * scale``; output ``bf16(acc)``, no ``/l``."""
+    the f32 scores ``q.k^T * scale``; output ``bf16(acc)``, no ``/l``. A
+    partial last block is its clipped slice: the kernels' zero keys add
+    nothing."""
     heads, seq, head_dim = q.shape
     scale = 1.0 / (head_dim**0.5)
-    n_k = seq // block_k
     out = torch.empty_like(q)
-    for i in range(seq // block_q):
+    for i in range(n_blocks(seq, block_q)):
         qb = q[:, i * block_q:(i + 1) * block_q].float()
-        hi = diag_stop(i, block_q, block_k) if causal else n_k
-        acc = torch.zeros((heads, block_q, head_dim), device=q.device)
+        hi = k_range(i, seq, block_q, block_k, causal)[0]
+        acc = torch.zeros((heads, qb.shape[1], head_dim), device=q.device)
         for j in range(hi):
             kb = k[:, j * block_k:(j + 1) * block_k].float()
             acc = step(acc, torch.matmul(qb, kb.transpose(1, 2)) * scale, j)
@@ -216,9 +265,12 @@ def plain_qk_only(q, k, block_q: int, block_k: int, causal: bool = True):
     (the first ``head_dim`` keys of each block, so ``block_k >= head_dim``)
     over every ``j < hi``; V is never read."""
     head_dim = q.shape[-1]
-    return _plain_unmasked(
-        q, k, block_q, block_k, causal, lambda acc, s, j: acc + s[..., :head_dim]
-    )
+
+    def step(acc, s, j):
+        first = s[..., :head_dim]  # a partial last block may hold fewer keys
+        return acc + torch.nn.functional.pad(first, (0, head_dim - first.shape[-1]))
+
+    return _plain_unmasked(q, k, block_q, block_k, causal, step)
 
 
 def _check_qkv(q, k, v, block_q: int, block_k: int) -> None:
@@ -229,9 +281,7 @@ def _check_qkv(q, k, v, block_q: int, block_k: int) -> None:
             raise ValueError("q, k and v must share shape and device")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    seq = q.shape[1]
-    if seq % block_q or seq % block_k:
-        raise ValueError(f"seq={seq} must tile by {block_q}/{block_k}")
+    check_tiling(q.shape[1], block_q, block_k)
 
 
 def plain_variant(q, k, v, block_q: int, block_k: int, causal: bool, variant: str):
@@ -263,10 +313,9 @@ def flash_attention(
 def check_kernel_tiling(name: str, block_q: int, block_k: int) -> None:
     """Raise ``ValueError`` unless the kernel counted as ``name`` takes
     ``(block_q, block_k)`` on the card: the Hopper kernel's (K3, K4, K5,
-    K7b, K7c, ``WGMMA_KERNELS``) ``block_q`` 64 or 128, the others (K6a,
-    K6b, K7a) a multiple of 16 up to 128; every kernel ``block_k`` a
-    multiple of 64. ``_launch`` calls
-    it before any CUDA call."""
+    K7a, K7b, K7c, ``WGMMA_KERNELS``) ``block_q`` 64 or 128, the others
+    (K6a, K6b) a multiple of 16 up to 128; every kernel ``block_k`` a
+    multiple of 64. ``_launch`` calls it before any CUDA call."""
     if name in WGMMA_KERNELS:
         q_ok, takes = block_q in WGMMA_BLOCK_Q, "block_q 64 or 128"
     else:
@@ -313,9 +362,9 @@ def make_flash_fn(
 ):
     """The flash-attention forward over ``(heads, seq, head_dim)`` bf16
     Q/K/V: ``fn(q, k, v) -> out``, by any of the reference's five variants
-    (``qk_only`` takes ``v`` and never reads it)."""
-    if seq % block_q or seq % block_k:
-        raise ValueError(f"seq={seq} must tile by {block_q}/{block_k}")
+    (``qk_only`` takes ``v`` and never reads it). ``check_tiling`` says
+    which ``seq`` the blocks may leave a partial last block at."""
+    check_tiling(seq, block_q, block_k)
     if variant not in REFERENCE_VARIANTS:
         raise ValueError(f"unknown flash variant {variant!r}")
 
@@ -343,12 +392,17 @@ def reference_attention(q, k, v, causal: bool = True):
     return torch.einsum("hqk,hkd->hqd", p, vf)
 
 
+def causal_pairs(seq: int, block_q: int, block_k: int) -> int:
+    """(q-block, k-block) pairs a causal run of one head processes."""
+    return sum(k_range(i, seq, block_q, block_k, True)[0] for i in range(n_blocks(seq, block_q)))
+
+
 def causal_flops(seq: int, heads: int, head_dim: int, block_q: int, block_k: int) -> float:
     """Exact FLOPs the causal tiling performs: two bf16 matmuls per
-    processed (q-block, k-block) pair, skipped blocks not counted."""
-    n_q = seq // block_q
-    total_blocks = sum(diag_stop(i, block_q, block_k) for i in range(n_q))
-    return 4.0 * heads * total_blocks * block_q * block_k * head_dim
+    processed (q-block, k-block) pair, whole blocks (a partial one's zero
+    rows included, as the kernels compute them), skipped blocks not
+    counted."""
+    return 4.0 * heads * causal_pairs(seq, block_q, block_k) * block_q * block_k * head_dim
 
 
 def _default_block(seq: int, cap: int) -> int:
@@ -365,20 +419,21 @@ def _default_block(seq: int, cap: int) -> int:
 
 def card_blocks(seq: int) -> tuple[int, int]:
     """The default ``(block_q, block_k)`` on the card, which every kernel
-    takes (``check_kernel_tiling``): the largest ``block_q`` of
-    ``WGMMA_BLOCK_Q`` and the largest multiple of 64 at most
-    ``BLOCK_K_CAP`` that divide ``seq``. The reference's rule
-    (``_default_block``) may pick blocks the kernels refuse (104/104 at seq
-    4160), so on ``cuda`` the probe and the breakdown take this one. A
-    ``seq`` that is not a multiple of 64 has no such tiling: ``ValueError``."""
-    bq = next((b for b in sorted(WGMMA_BLOCK_Q, reverse=True) if seq % b == 0), None)
-    bk = next((b for b in range(BLOCK_K_CAP - BLOCK_K_CAP % KERNEL_KEY_TILE, 0,
-                                -KERNEL_KEY_TILE) if seq % b == 0), None)
-    if bq is None or bk is None:
-        raise ValueError(
-            f"seq={seq} has no tiling the CUDA kernels take: block_q 64 or 128 and "
-            f"block_k a multiple of {KERNEL_KEY_TILE}, each dividing seq"
-        )
+    takes (``check_kernel_tiling``). At a multiple of 64: the largest
+    ``block_q`` of ``WGMMA_BLOCK_Q`` and the largest multiple of 64 at most
+    ``BLOCK_K_CAP`` that divide ``seq`` (the reference's rule,
+    ``_default_block``, may pick blocks the kernels refuse, 104/104 at seq
+    4160). At any other ``seq`` the reference takes: 128/128, or 64/64
+    below seq 128, with a partial last block. So on ``cuda`` the probe and
+    the breakdown take this one. Elsewhere it raises the reference's
+    must-tile ``ValueError``."""
+    if seq % KERNEL_KEY_TILE:
+        blocks = (BLOCK_Q_CAP, BLOCK_K_CAP) if seq >= BLOCK_Q_CAP else (64, 64)
+        check_tiling(seq, *blocks)
+        return blocks
+    bq = next(b for b in sorted(WGMMA_BLOCK_Q, reverse=True) if seq % b == 0)
+    bk = next(b for b in range(BLOCK_K_CAP - BLOCK_K_CAP % KERNEL_KEY_TILE, 0,
+                               -KERNEL_KEY_TILE) if seq % b == 0)
     return bq, bk
 
 
@@ -555,7 +610,7 @@ def run_flashattn_breakdown(
         torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
         for _ in range(3)
     )
-    pairs = heads * sum(diag_stop(i, bq, bk) for i in range(seq // bq))
+    pairs = heads * causal_pairs(seq, bq, bk)
     flops_full = causal_flops(seq, heads, head_dim, bq, bk)
     gen_tag = device_generation(device_kind(dev))
     peak = PEAK_BF16_TFLOPS.get(gen_tag) if gen_tag else None

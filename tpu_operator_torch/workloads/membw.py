@@ -12,8 +12,17 @@ corrupts training.
 
 K1, the tiled copy (``csrc/copy.cu::tiled_copy_f32``), backs
 ``make_copy_fn``: the copy path off the card, where it runs its plain
-version. Each wrapper takes the plain version (``x.clone()``) only for a
-tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
+version. ``tiled_copy_tma`` is K1's Hopper redesign (TMA tiles through a
+ring, a persistent grid), which measured slower than K1 and is on no path;
+it is timed beside K1. Each wrapper takes the plain version (``x.clone()``)
+only for a tensor on the CPU; for a CUDA tensor it launches its kernel or
+raises.
+
+    python -m tpu_operator_torch.workloads.membw
+
+prints the card's name, then K1's, the tried design's, K2's and
+``Tensor.copy_``'s device milliseconds a copy of the probe's 2 GiB buffer
+as one JSON line.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import torch
 from tpu_operator_torch import _build
 from tpu_operator_torch.device import device_kind, resolve_device
 from tpu_operator_torch.workloads.matmul import device_generation
-from tpu_operator_torch.workloads.timing import chain_per_iter_seconds
+from tpu_operator_torch.workloads.timing import chain_per_iter_seconds, event_ms
 from tpu_operator_torch.workloads.topology import PEAK_HBM_GBPS
 
 LANES = 16384  # f32 row width of the probe buffer: 64 KB rows
@@ -85,19 +94,28 @@ def _check_buffer(x: torch.Tensor) -> None:
         raise ValueError(f"copy runs on cpu or cuda, not {x.device}")
 
 
-def tiled_copy(x: torch.Tensor) -> torch.Tensor:
-    """K1: ``x`` copied through shared memory one 16 KB tile per block."""
+def _tiled(x: torch.Tensor, name: str, entry: str) -> torch.Tensor:
     _check_buffer(x)
     if x.device.type == "cpu":
         return plain_copy(x)
     lib = _build.library()
     out = torch.empty_like(x)
-    err = lib.tiled_copy_f32(
-        x.data_ptr(), out.data_ptr(), x.numel(), _build.stream_ptr(x)
-    )
-    _build.check(lib, err, "tiled_copy")
-    _build.count_launch("tiled_copy")
+    err = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), x.numel(), _build.stream_ptr(x))
+    _build.check(lib, err, name)
+    _build.count_launch(name)
     return out
+
+
+def tiled_copy(x: torch.Tensor) -> torch.Tensor:
+    """K1: ``x`` copied through shared memory one 16 KB tile per block."""
+    return _tiled(x, "tiled_copy", "tiled_copy_f32")
+
+
+def tiled_copy_tma(x: torch.Tensor) -> torch.Tensor:
+    """K1's tried Hopper design: ``x`` copied in 16 KB tiles by TMA loads
+    and stores through a ring of shared-memory stages, by a grid of one
+    wave. On no path; timed beside K1."""
+    return _tiled(x, "tiled_copy_tma", "tiled_copy_tma_f32")
 
 
 def bulk_copy(x: torch.Tensor, n_chunks: int = 8) -> torch.Tensor:
@@ -245,3 +263,29 @@ def run_membw_probe(
         )
     except Exception as e:
         return MemBwResult(False, "", "", size_mb, iters, 0.0, 0.0, error=str(e))
+
+
+def time_copies(size_mb: int = 2048, reps: int = 20) -> dict:
+    """K1's, its tried design's, K2's and ``Tensor.copy_``'s mean device
+    milliseconds a copy of the probe's ``(probe_rows(size_mb), LANES)`` f32
+    buffer on the card (CUDA events over ``reps`` calls), each kernel
+    checked bit-exact first."""
+    dev = resolve_device(None)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((probe_rows(size_mb), LANES), generator=gen, device=dev)
+    dst = torch.empty_like(x)
+    out = {"shape": list(x.shape)}
+    for name, wrapper in (("tiled_copy", tiled_copy), ("tiled_copy_tma", tiled_copy_tma),
+                          ("bulk_copy", bulk_copy)):
+        if not torch.equal(wrapper(x), x):
+            raise RuntimeError(f"{name} is not bit-exact")
+        out[f"{name}_ms"] = event_ms(lambda: wrapper(x), reps)
+    out["copy_ms"] = event_ms(lambda: dst.copy_(x), reps)
+    return out
+
+
+if __name__ == "__main__":
+    import json
+
+    print(device_kind(resolve_device()), flush=True)
+    print(json.dumps(time_copies()), flush=True)

@@ -97,3 +97,22 @@ def adjacent_ratio_stats(
             rs,
         )
     return out
+
+
+def event_ms(fn: Callable, reps: int, warmup: int = 2) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` back-to-back
+    calls on the current CUDA device, from CUDA events, after ``warmup``
+    calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
