@@ -10,9 +10,10 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    versions, build the kernels from ``tpu_operator_torch/csrc`` (ptxas's
    registers and spills printed; a ``wgmma`` serialization note, C7515 or
    C7519, fails), and count ``HGMMA``, ``UTMALDG`` and ``HMMA`` in the SASS
-   of each of the six instances of the Hopper kernel, K3, K4, K5, K7a, K7b
-   and K7c (``cuobjdump``; a missing instance, no HGMMA or UTMALDG, or any
-   HMMA fails);
+   of each of the eight instances of the Hopper kernel, K3, K4, K5, K6a,
+   K6b, K7a, K7b and K7c (``cuobjdump``; a missing instance, no HGMMA or
+   UTMALDG, any HMMA in any function of the library, or a ``MUFU.EX2`` in
+   K6a or K6b, whose softmax is gone, fails);
 2. first, under a watchdog of ``PARTIAL_TILE_TIMEOUT_S`` (a wrong TMA
    transaction count on a box that reaches past seq would hang a kernel),
    every flash kernel at ``PARTIAL_TILE_SHAPES``, seqs its blocks do not
@@ -28,10 +29,11 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    where some q-blocks have an odd number (3, 5, 7) of unmasked
    sub-tiles, K4 equal to K3 bit for bit at every shape; the
    instruments K6a ``softmax_stub`` within 1e-2 and K6b ``qk_only``
-   within one bf16 ulp of theirs), check that K3, K4, K5, K7a, K7b and K7c
-   refuse ``block_q`` 32 with ``ValueError`` and launch nothing and that
-   the host cost per call of each stays within ``K3_HOST_LIMIT_US`` of
-   K6a's (their tensor maps; K6a encodes none), and time kernel, plain
+   within one bf16 ulp of theirs, also at those edges, K6b where
+   ``block_k`` >= 128), check that all eight Hopper instances refuse
+   ``block_q`` 32 with ``ValueError`` and launch nothing and that the host
+   cost per call of each stays within ``K3_HOST_LIMIT_US`` of a launch that
+   encodes no tensor map (K1 on a small buffer), and time kernel, plain
    version and one library call at the main path's shapes;
 3. run the main path in-process at its full operating points (matmul 8192,
    membw 2 GiB, flash attention 8192 x 8 heads) with the launch counts set
@@ -115,19 +117,23 @@ K3_EDGE_SHAPES = [
 WGMMA_KERNEL = "flash_fwd_wgmma_kernel"  # the Hopper kernel's __global__ in csrc/flash.cu
 # its instances by (Step, Body) as the mangled name spells them:
 # flash_fwd_wgmma_kernel<Step, Body, int STAGES> gives ...LNS_4StepE<s>ELNS_4BodyE<b>E...,
-# Step::kFull = 0, kBf16Exp = 1, kBf16S = 4; Body::kOne = 0, kPair = 1, kPipe = 2
+# Step::kFull = 0, kBf16Exp = 1, kStub = 2, kQkOnly = 3, kBf16S = 4; Body::kOne = 0,
+# kPair = 1, kPipe = 2
 WGMMA_INSTANCES = {
-    ("0", "0"): "K3", ("0", "1"): "K7a", ("0", "2"): "K4", ("1", "0"): "K5", ("4", "0"): "K7b",
-    ("4", "1"): "K7c",
+    ("0", "0"): "K3", ("0", "1"): "K7a", ("0", "2"): "K4", ("1", "0"): "K5", ("2", "0"): "K6a",
+    ("3", "0"): "K6b", ("4", "0"): "K7b", ("4", "1"): "K7c",
 }
+# the stubs, whose SASS must hold no exp: their softmax is gone
+NO_SOFTMAX = ("K6a", "K6b")
 WGMMA_NAME_ARGS = re.compile(r"StepE(\d+)E.*?BodyE(\d+)E")
 # the softmax's instruction mix, logged per instance (static counts in its
 # SASS, every copy of the loop body): exp, f32->bf16x2 packs, f32 and
 # packed bf16 max, packed bf16 fma
 SOFTMAX_OPS = ("MUFU.EX2", "F2FP", "FMNMX", "HMNMX2", "HFMA2")
-# host microseconds a call of the Hopper kernel may spend beyond K6a's
-# (its tensor maps): 5% of K3's ~0.39 ms at the main path's shape, where
-# the host would start to set the pace of a chain of launches
+# host microseconds a call of the Hopper kernel may spend beyond a launch
+# that encodes no tensor map (K1 on a small buffer), its tensor maps: 5% of
+# K3's ~0.39 ms at the main path's shape, where the host would start to set
+# the pace of a chain of launches
 K3_HOST_LIMIT_US = 20.0
 # the variants' shapes: the reference's seq-1024 test at the port's blocks
 VARIANT_TEST_SHAPES = FLASH_TEST_SHAPES + [
@@ -160,7 +166,7 @@ ODD_UNMASKED_SHAPE = (1, 512, 64, 64, True)
 STRUCTURAL_TEST_SHAPES = [s for s in VARIANT_TEST_SHAPES if s[4]] + [
     ODD_UNMASKED_SHAPE,
 ] + [s for s in K3_EDGE_SHAPES if s[4]]
-# where K4 and K5, the attribution variants on the Hopper kernel, also run
+# where the attribution variants K4-K6b also run (K6b where block_k >= 128)
 HOPPER_VARIANT_SHAPES = K3_EDGE_SHAPES + [ODD_UNMASKED_SHAPE]
 # (seq, the card's default blocks there) of the probes counted apart from
 # the main path: 4160, which the reference's block rule tiles 104/104 and
@@ -342,7 +348,7 @@ def phase_kernels() -> tuple:
         del got, plain, ref
     torch.cuda.empty_cache()
     wgmma_refuse_block_q_32(fa, q, k, v)
-    wgmma_host_cost(fa, qkv)
+    wgmma_host_cost(fa, mb, qkv)
     useful = 4.0 * heads * fa.LANES * seq * (seq + 1) / 2.0
     io_bytes = 4.0 * heads * seq * fa.LANES * 2
     bound_flops, bound_io = useful / peak_flops, io_bytes / peak_bytes
@@ -371,7 +377,7 @@ def phase_kernels() -> tuple:
 
 
 def wgmma_callers(fa):
-    """(label, launch counter, fn(q, k, v, block_q, block_k)) of the six
+    """(label, launch counter, fn(q, k, v, block_q, block_k)) of the eight
     kernels that run on the Hopper kernel, through their wrappers."""
     from tpu_operator_torch.workloads import fa_experiment as fx
 
@@ -385,6 +391,8 @@ def wgmma_callers(fa):
         ("K3", "flash_fwd", variant("full")),
         ("K4", "flash_fwd_pipelined", variant("pipelined")),
         ("K5", "flash_fwd_bf16exp", variant("bf16exp")),
+        ("K6a", "flash_softmax_stub", variant("softmax_stub")),
+        ("K6b", "flash_qk_only", variant("qk_only")),
         ("K7a", "flash_fwd_paired", mode("paired")),
         ("K7b", "flash_fwd_bf16s", mode("bf16s")),
         ("K7c", "flash_fwd_paired16", mode("paired16")),
@@ -392,9 +400,8 @@ def wgmma_callers(fa):
 
 
 def wgmma_refuse_block_q_32(fa, q, k, v) -> None:
-    """The Hopper kernel runs whole warpgroups: K3, K4, K5, K7a, K7b and K7c
-    must each raise ValueError at block_q 32 on the card before any
-    launch."""
+    """The Hopper kernel runs whole warpgroups: each of its eight instances
+    must raise ValueError at block_q 32 on the card before any launch."""
     from tpu_operator_torch import _build
 
     for label, name, run in wgmma_callers(fa):
@@ -409,32 +416,30 @@ def wgmma_refuse_block_q_32(fa, q, k, v) -> None:
             raise RuntimeError(f"{label} launched at block_q 32")
 
 
-def wgmma_host_cost(fa, qkv) -> None:
-    """Host microseconds a call of each Hopper instance (each encodes
-    three tensor maps per call) and of K6a (synchronous, no tensor maps)
-    take at a shape whose kernels are shorter than their enqueue, so the
-    host sets the pace; the least of three readings each. Fails when the
-    maps cost more than K3_HOST_LIMIT_US a call: then they must be
-    cached."""
+def wgmma_host_cost(fa, mb, qkv) -> None:
+    """Host microseconds a call of each Hopper instance (each encodes two
+    or three tensor maps per call) and of K1 on an (8, LANES) f32 buffer (a
+    launch through the same kind of wrapper that encodes no map) take at
+    shapes whose kernels are shorter than their enqueue, so the host sets
+    the pace; the least of three readings each. Fails when the maps cost
+    more than K3_HOST_LIMIT_US a call: then they must be cached."""
     q, k, v = qkv(1, 128)
+    buf = torch.zeros((8, mb.LANES), device=q.device, dtype=torch.float32)
 
     def host_us(run):
         for _ in range(10):
-            run(q, k, v, 64, 64)
+            run(q, k, v, 64, 128)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(100):
-            run(q, k, v, 64, 64)
+            run(q, k, v, 64, 128)
         us = (time.perf_counter() - t0) / 100 * 1e6
         torch.cuda.synchronize()
         return us
 
-    def k6a(q, k, v, bq, bk):
-        return fa.flash_attention(q, k, v, bq, bk, True, "softmax_stub")
-
-    base = min(host_us(k6a) for _ in range(3))
+    base = min(host_us(lambda *_: mb.tiled_copy(buf)) for _ in range(3))
     costs = {label: min(host_us(run) for _ in range(3)) for label, _, run in wgmma_callers(fa)}
-    log(f"host us per call at 1 x 128, 64/64: K6a {base:.2f}, "
+    log(f"host us per call: K1 at (8, {mb.LANES}) {base:.2f}; at 1 x 128, 64/128: "
         + ", ".join(f"{label} {us:.2f}" for label, us in costs.items()))
     for label, us in costs.items():
         if us - base > K3_HOST_LIMIT_US:
@@ -443,10 +448,12 @@ def wgmma_host_cost(fa, qkv) -> None:
 
 
 def wgmma_sass() -> None:
-    """Count HGMMA (wgmma), UTMALDG (TMA loads) and HMMA (mma.sync) in each
-    instance of the Hopper kernel in the built library's SASS; fail unless
-    the six of WGMMA_INSTANCES are all there, each with HGMMA and UTMALDG
-    and no HMMA. The softmax's instruction mix (SOFTMAX_OPS) is logged."""
+    """Count HGMMA (wgmma), UTMALDG (TMA loads) and HMMA (the warp-level
+    MMA) in each instance of the Hopper kernel in the built library's SASS;
+    fail unless the eight of WGMMA_INSTANCES are all there, each with HGMMA
+    and UTMALDG, K6a and K6b with no MUFU.EX2 (no softmax), and no function
+    of the library has HMMA. The softmax's instruction mix (SOFTMAX_OPS) is
+    logged."""
     from tpu_operator_torch import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -454,23 +461,27 @@ def wgmma_sass() -> None:
         [cuobjdump, "-sass", _build.build_info["path"]], capture_output=True, text=True,
         timeout=120,
     ).stdout
-    found = {}
+    found, hmma = {}, []
     for body in sass.split("Function : ")[1:]:
         name = body.split("\n", 1)[0]
+        if " HMMA" in body:
+            hmma.append(name.strip())
         if WGMMA_KERNEL not in name:
             continue
         args = WGMMA_NAME_ARGS.search(name)
         label = WGMMA_INSTANCES.get(args.groups() if args else None, name.strip())
-        found[label] = (body.count("HGMMA"), body.count("UTMALDG"), body.count(" HMMA"))
+        found[label] = (body.count("HGMMA"), body.count("UTMALDG"), body.count("MUFU.EX2"))
         log(f"{WGMMA_KERNEL} {label} SASS: HGMMA {found[label][0]}, "
-            f"UTMALDG {found[label][1]}, HMMA {found[label][2]}; "
+            f"UTMALDG {found[label][1]}, HMMA {body.count(' HMMA')}; "
             + ", ".join(f"{op} {body.count(op)}" for op in SOFTMAX_OPS))
     if sorted(found) != sorted(WGMMA_INSTANCES.values()):
         raise RuntimeError(f"{WGMMA_KERNEL} instances in the SASS: {sorted(found)}, "
                            f"expected {sorted(WGMMA_INSTANCES.values())}")
-    for label, (hgmma, utmaldg, hmma) in found.items():
-        if hgmma == 0 or utmaldg == 0 or hmma:
-            raise RuntimeError(f"{label} has HGMMA {hgmma}, UTMALDG {utmaldg}, HMMA {hmma}")
+    if hmma:
+        raise RuntimeError(f"HMMA in the library's SASS: {hmma}")
+    for label, (hgmma, utmaldg, ex2) in found.items():
+        if hgmma == 0 or utmaldg == 0 or (label in NO_SOFTMAX and ex2):
+            raise RuntimeError(f"{label} has HGMMA {hgmma}, UTMALDG {utmaldg}, MUFU.EX2 {ex2}")
 
 
 def check_variant(fa, variant, q, k, v, bq, bk, causal) -> float:
@@ -507,14 +518,16 @@ def check_variant(fa, variant, q, k, v, bq, bk, causal) -> float:
 
 
 def variant_rows(fa, qkv, peak_flops, peak_bytes) -> list:
-    """K4-K6b: checked at the variants' test shapes and at the breakdown's
-    (8, 8192, 128/128, causal), K4 and K5 also at ``HOPPER_VARIANT_SHAPES``,
-    then timed at the breakdown's shape."""
+    """K4-K6b: checked at the variants' test shapes, at
+    ``HOPPER_VARIANT_SHAPES`` (K6b where ``block_k`` >= 128) and at the
+    breakdown's (8, 8192, 128/128, causal), then timed at the breakdown's
+    shape."""
     heads, seq = 8, 8192
     bq, bk = fa.BLOCK_Q_CAP, fa.BLOCK_K_CAP
     worst = {variant: 0.0 for variant, _, _ in VARIANTS}
     shapes = [(shape, tuple(worst)) for shape in VARIANT_TEST_SHAPES]
-    shapes += [(shape, ("pipelined", "bf16exp")) for shape in HOPPER_VARIANT_SHAPES]
+    shapes += [(shape, tuple(v for v in worst if v != "qk_only" or shape[3] >= fa.LANES))
+               for shape in HOPPER_VARIANT_SHAPES]
     shapes.append(((heads, seq, bq, bk, True), tuple(worst)))
     for (h, s, bq_, bk_, causal), variants in shapes:
         q, k, v = qkv(h, s)

@@ -165,11 +165,11 @@ def test_k3_tiling_contract(block_q, takes):
 
 
 @pytest.mark.parametrize(
-    "name", ["flash_fwd_pipelined", "flash_fwd_bf16exp", "flash_fwd_paired", "flash_fwd_bf16s",
-             "flash_fwd_paired16"])
+    "name", ["flash_fwd_pipelined", "flash_fwd_bf16exp", "flash_softmax_stub", "flash_qk_only",
+             "flash_fwd_paired", "flash_fwd_bf16s", "flash_fwd_paired16"])
 @pytest.mark.parametrize("block_q,takes", [(32, False), (64, True), (128, True), (256, False)])
 def test_hopper_variants_take_k3s_tiling_contract(name, block_q, takes):
-    """K4, K5, K7a, K7b and K7c run on K3's Hopper kernel, so they take its
+    """K4, K5, K6a, K6b, K7a, K7b and K7c run on K3's Hopper kernel, so they take its
     block_q 64 or 128, and block_k a multiple of 64."""
     if takes:
         port.check_kernel_tiling(name, block_q, 128)
@@ -180,22 +180,27 @@ def test_hopper_variants_take_k3s_tiling_contract(name, block_q, takes):
         port.check_kernel_tiling(name, 128, 96)
 
 
-SYNCHRONOUS_KERNELS = ("flash_softmax_stub", "flash_qk_only")
-
-
-def test_synchronous_kernels_keep_their_tiling_contract():
-    """K6a and K6b keep block_q a multiple of 16 up to 128; every kernel
-    takes block_k a multiple of 64 only."""
-    assert not set(SYNCHRONOUS_KERNELS) & set(port.WGMMA_KERNELS)
-    assert set(SYNCHRONOUS_KERNELS) | set(port.WGMMA_KERNELS) == {
+@pytest.mark.parametrize("variant", ["softmax_stub", "qk_only"])
+def test_stubs_take_the_hopper_tiling_contract(variant):
+    """K6a and K6b run on the Hopper kernel like every flash kernel
+    (``WGMMA_KERNELS`` is every ``flash_*`` launch counter): block_q 64 or
+    128, never 16, 32, 48 or 144; K6b also refuses block_k 64, a k-block
+    with fewer than head_dim keys, before the device is looked at."""
+    assert set(port.WGMMA_KERNELS) == {
         name for name in _build.KERNELS if name.startswith("flash_")}
-    port.check_kernel_tiling("flash_softmax_stub", 32, 128)
-    port.check_kernel_tiling("flash_softmax_stub", 16, 64)
-    port.check_kernel_tiling("flash_qk_only", 48, 128)
-    for name, bq, bk in (("flash_softmax_stub", 144, 128), ("flash_fwd_paired", 24, 128),
-                         ("flash_fwd", 128, 96), ("flash_qk_only", 64, 0)):
-        with pytest.raises(ValueError):
-            port.check_kernel_tiling(name, bq, bk)
+    name = port.VARIANT_KERNELS[variant][0]
+    assert name in port.WGMMA_KERNELS
+    for bq in (64, 128):
+        port.check_kernel_tiling(name, bq, 128)
+    for bq in (16, 32, 48, 144):
+        with pytest.raises(ValueError, match="block_q 64 or 128"):
+            port.check_kernel_tiling(name, bq, 128)
+    q = torch.zeros((1, 256, 128), dtype=torch.bfloat16)
+    if variant == "qk_only":
+        with pytest.raises(ValueError, match="block_k >= head_dim"):
+            port.flash_attention(q, q, q, 64, 64, True, variant)
+    else:
+        port.check_kernel_tiling(name, 64, 64)
 
 
 # every multiple of 64 from 64 to 16384
@@ -204,13 +209,12 @@ CARD_SEQS = range(64, 16384 + 1, 64)
 
 def test_card_blocks_pass_every_kernels_tiling_contract():
     """At every seq that is a multiple of 64, the card's default blocks
-    tile seq and pass ``check_kernel_tiling`` for every flash kernel, the
-    Hopper instances and the synchronous ones."""
+    tile seq and pass ``check_kernel_tiling`` for every flash kernel."""
     for seq in CARD_SEQS:
         bq, bk = port.card_blocks(seq)
         assert seq % bq == 0 and seq % bk == 0, seq
         assert bk <= port.BLOCK_K_CAP
-        for name in port.WGMMA_KERNELS + SYNCHRONOUS_KERNELS:
+        for name in port.WGMMA_KERNELS:
             port.check_kernel_tiling(name, bq, bk)
 
 
@@ -273,7 +277,7 @@ def test_card_blocks_take_every_seq_the_reference_takes():
             continue
         bq, bk = port.card_blocks(seq)
         port.check_tiling(seq, bq, bk)
-        for name in port.WGMMA_KERNELS + SYNCHRONOUS_KERNELS:
+        for name in port.WGMMA_KERNELS:
             port.check_kernel_tiling(name, bq, bk)
         assert port.n_blocks(seq, bq) * bq - seq < bq and bq <= max(seq, 64), seq
     assert {300, 1031} <= set(refused) and 520 not in refused and 1000 not in refused

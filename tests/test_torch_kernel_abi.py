@@ -136,13 +136,15 @@ def entry_body(src_name: str, entry: str) -> str:
 
 
 # entry -> (its instance of the Hopper kernel's Step and Body, its scale):
-# K3, K4 and K7a work in the log2 domain, K5, K7b and K7c on the
+# K3, K4 and K7a work in the log2 domain, K5, K6a, K6b, K7b and K7c on the
 # reference's s*scale
 HOPPER_ENTRIES = {
     "flash_fwd_bf16": ("kFull", "kOne", "SCALE_LOG2"),
     "flash_fwd_pipelined": ("kFull", "kPipe", "SCALE_LOG2"),
     "flash_fwd_paired": ("kFull", "kPair", "SCALE_LOG2"),
     "flash_fwd_bf16exp": ("kBf16Exp", "kOne", "SCALE"),
+    "flash_softmax_stub": ("kStub", "kOne", "SCALE"),
+    "flash_qk_only": ("kQkOnly", "kOne", "SCALE"),
     "flash_fwd_bf16s": ("kBf16S", "kOne", "SCALE"),
     "flash_fwd_paired16": ("kBf16S", "kPair", "SCALE"),
 }
@@ -152,8 +154,9 @@ LAUNCH_WGMMA = re.compile(
 
 @pytest.mark.parametrize("entry", sorted(HOPPER_ENTRIES))
 def test_hopper_entries_launch_through_launch_wgmma(entry):
-    """K3, K4, K5, K7a, K7b and K7c each launch their own instance of the
-    Hopper kernel (TMA ring, wgmma) with their scale, and nothing else."""
+    """K3, K4, K5, K6a, K6b, K7a, K7b and K7c each launch their own
+    instance of the Hopper kernel (TMA ring, wgmma) with their scale, and
+    nothing else."""
     body = entry_body("flash.cu", entry)
     m = LAUNCH_WGMMA.fullmatch(body)
     assert m, f"{entry} does not launch through launch_wgmma: {body!r}"
@@ -203,6 +206,17 @@ def test_chip_smoke_expects_the_instances_the_entries_launch():
     assert args == (steps["kFull"], bodies["kPipe"]) and smoke.WGMMA_INSTANCES[args] == "K4"
 
 
+def test_chip_smoke_wants_no_exp_in_exactly_the_stubs():
+    """``chip_smoke.NO_SOFTMAX``, the instances whose SASS must hold no
+    MUFU.EX2, are the labels of the two stub steps' instances, and no
+    instance of a step with a softmax."""
+    steps, bodies = enum_values("flash.cu", "Step"), enum_values("flash.cu", "Body")
+    smoke = _chip_smoke()
+    stubs = {smoke.WGMMA_INSTANCES[(steps[step], bodies["kOne"])]
+             for step in ("kStub", "kQkOnly")}
+    assert set(smoke.NO_SOFTMAX) == stubs == {"K6a", "K6b"}
+
+
 def _unmasked_subtiles(seq: int, block_q: int, block_k: int, kt: int) -> set:
     """The unmasked sub-tile counts of a causal run's q-blocks, as
     ``flash_fwd_wgmma_kernel`` computes ``n_unmasked``, over
@@ -229,24 +243,19 @@ def test_chip_smoke_reaches_both_exits_of_the_two_s_bodies(kernels):
     assert any(n >= 3 and n % 2 for n in counts), counts
 
 
-# the synchronous kernels' entries: K6a and K6b
-SYNCHRONOUS_ENTRIES = {"flash_softmax_stub", "flash_qk_only"}
-
-
-def test_only_the_stubs_keep_the_synchronous_design():
-    """The synchronous K7a is gone (no flash_fwd_paired_kernel, no
-    launch_two_stage), and every flash entry but K6a's and K6b's launches
-    through launch_wgmma."""
+def test_every_flash_entry_launches_through_launch_wgmma():
+    """The synchronous design is gone: every flash entry launches through
+    launch_wgmma, and neither the synchronous kernel, its launcher, its
+    staging nor its warp-level MMA is left in flash.cu, nor what the
+    synchronous pair kernel had."""
     text = _strip_comments((_build.CSRC / "flash.cu").read_text())
-    for dead in ("flash_fwd_paired_kernel", "launch_two_stage", "PIPE_SMEM", "softmax_pv"):
+    for dead in ("flash_fwd_kernel", "mma16816", "mma.sync", "stage_rows", "launch<",
+                 "flash_fwd_paired_kernel", "launch_two_stage", "PIPE_SMEM", "softmax_pv"):
         assert dead not in text, dead
     flash_entries = {e for e in c_entries() if e.startswith("flash_")}
-    assert SYNCHRONOUS_ENTRIES <= flash_entries
-    for entry in sorted(flash_entries - SYNCHRONOUS_ENTRIES):
+    for entry in sorted(flash_entries):
         assert LAUNCH_WGMMA.fullmatch(entry_body("flash.cu", entry)), entry
-    for entry in SYNCHRONOUS_ENTRIES:
-        assert "launch_wgmma" not in entry_body("flash.cu", entry), entry
-    assert set(HOPPER_ENTRIES) == flash_entries - SYNCHRONOUS_ENTRIES
+    assert set(HOPPER_ENTRIES) == flash_entries
 
 
 def test_error_string_is_bound(bound):

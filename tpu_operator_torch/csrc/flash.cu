@@ -46,18 +46,19 @@
 // instruments are bound the same way: K6a does both products over the
 // causal tiling (1.4e11 FLOPs), K6b half of them.
 //
-// The Hopper kernel (flash_fwd_wgmma_kernel<STEP, BODY, STAGES>), six
+// The Hopper kernel (flash_fwd_wgmma_kernel<STEP, BODY, STAGES>), eight
 // instances: K3 <kFull, kOne, 2>, K5 <kBf16Exp, kOne, 2>, K7b <kBf16S,
-// kOne, 2>, K7c <kBf16S, kPair, 4>, K7a <kFull, kPair, K7A_STAGES> and K4
-// <kFull, kPipe, 3>. STEP is the softmax, BODY the loop over the unmasked
-// range. What bound the first K3 (the synchronous design below) was its
-// staging and its products: every 64-key sub-tile was staged by 16-byte
+// kOne, 2>, K7c <kBf16S, kPair, 4>, K7a <kFull, kPair, K7A_STAGES>, K4
+// <kFull, kPipe, 3>, and the attribution stubs K6a <kStub, kOne, 2> and K6b
+// <kQkOnly, kOne, 2>. STEP is the softmax, BODY the loop over the unmasked
+// range. What bound the first K3 (a synchronous design, since deleted) was
+// its staging and its products: every 64-key sub-tile was staged by 16-byte
 // loads between two block barriers with no product running, at one
-// 256-thread block per SM, and both products ran on mma.sync, which cannot
-// reach the tensor cores' rate. The other five are K3's function or K3's
-// with another softmax, so they lost the same way (on an H100, 4.4-5.6x
-// the time of PyTorch's scaled_dot_product_attention against K3's 1.46x)
-// and take K3's design:
+// 256-thread block per SM, and both products ran on the m16n8k16 warp-level
+// MMA, which cannot reach the tensor cores' rate. Every other kernel is
+// K3's function, K3's with another softmax, or K3's minus a phase, so they
+// lost the same way (on an H100, 4.4-5.6x the time of PyTorch's
+// scaled_dot_product_attention against K3's 1.46x) and take K3's design:
 // - Host: a rank-3 tensor map per Q, K, V over (heads, seq, 128) bf16 with
 //   64 x 64 x 1 boxes (one box row is 128 B) and 128-byte swizzle, D = 128
 //   taking two boxes; cuTensorMapEncodeTiled is reached through the runtime
@@ -91,15 +92,17 @@
 //   wgmma m64n128k16 over the sub-tile's keys, p from registers as the A
 //   fragment, the V stage MN-major (the transpose bit; LBO 8 KB to the
 //   second box of D, SBO 1024 B to the next 8 keys).
-// - A warp's slice of a wgmma m64nN f32 accumulator is the mma.sync m16n8
-//   C layout repeated over N/8, so each instance's softmax is the
-//   synchronous kernels' own (softmax_step): kFull online_softmax<false>
-//   (log2 domain, scale*log2e, the masked-row guard); kBf16Exp
-//   online_softmax<true> (the reference's s*scale, p = bf16(exp(bf16(s -
-//   m_new))) already bf16, so packing it is exact); kBf16S scores_b then
-//   softmax_b, whose packed p pairs are the A fragment as they stand. No
-//   generic-proxy write reaches the shared memory that TMA and wgmma use,
-//   so no proxy fence is needed.
+// - A warp's slice of a wgmma m64nN f32 accumulator is the m16n8 C
+//   layout (rows g and g+8, columns 2t and 2t+1 of each 8-column tile)
+//   repeated over N/8, and its p pairs are PV's register A fragment as they
+//   stand. Each instance's softmax works in it (softmax_step): kFull
+//   online_softmax<false> (log2 domain, scale*log2e, the masked-row guard);
+//   kBf16Exp online_softmax<true> (the reference's s*scale, p =
+//   bf16(exp(bf16(s - m_new))) already bf16, so packing it is exact);
+//   kBf16S scores_b then softmax_b, whose packed p pairs are the A fragment
+//   as they stand; kStub p = (s*scale)*0.001, no m, no l. No generic-proxy
+//   write reaches the shared memory that TMA and wgmma use, so no proxy
+//   fence is needed.
 // - The logical tiling is the caller's (block_q, block_k) as on the TPU,
 //   over ceil(seq/block_q) q-blocks and ceil(seq/block_k) k-blocks: a
 //   causal q-block processes k-blocks [0, diag_stop(i)), cut at the last
@@ -138,34 +141,29 @@
 //   then, which takes three stages (129 KB): with two, the load of kt+2
 //   starts only once PV(kt) lands and S(kt+2) waits on it (K3/K4 0.74 on
 //   the H100); three measured faster than four (1.076 against 1.041).
-// Each instance does, per element, the arithmetic of its synchronous
-// predecessor in the same k16 steps in the same order, so K4 and K7a equal
-// K3 and K7c equals K7b bit for bit.
+// - The stubs, K6a and K6b, are K3's structure minus one phase each (K6a
+//   the softmax, K6b also PV and V), so the breakdown's differences read
+//   that phase on K3 itself: the same kOne body, ring depth, warpgroups,
+//   order of q-blocks and release protocol. Neither takes a faster body or
+//   a deeper ring of its own. Both run every sub-tile of [0, hi) unmasked,
+//   as the reference's stubs do (n_unmasked = n_tiles; the masked step is
+//   never instantiated), and store acc with no division. K6b's ring carries
+//   K alone: a stage is one 16 KB tile, its "full" barrier expects one
+//   tile's bytes, no V map is encoded and no PV issued. Once sub-tile kt's
+//   S has landed, part kt % (block_k/64) 0 adds s*scale into acc's n-tiles
+//   0-7 and part 1 into 8-15 (the block's first 128 keys); the products of
+//   parts 2 and up still run and are waited for before their stage is
+//   released, then discarded. acc is never a wgmma accumulator there. Zero
+//   keys past seq add exact zeros: K6a's p is bf16(0*scale*0.001) = 0
+//   against a zero V row, K6b adds scores of 0.
+// Instances of one STEP do, per element, the same arithmetic in the same
+// k16 steps in the same order, so K4 and K7a equal K3 and K7c equals K7b
+// bit for bit.
 // Not done yet: warp specialisation (a producer warp, setmaxnreg), the next
 // S product overlapped with the current softmax in K3 itself (K4's body at
 // two blocks an SM), persistent blocks, clusters and multicast. In the kOne
 // instances the softmax still runs between the two products with the
 // tensor cores idle, hidden only by a second block on the SM.
-//
-// The synchronous design (K6a, K6b; and every other kernel before it
-// moved to the Hopper kernel): one block per (q-block, head) with
-// block_q/16 warps; each warp owns 16 query rows. A warp keeps its Q rows
-// in registers as mma.sync A fragments for the whole kernel, and its f32
-// accumulator (16 x 128), m and l in registers. K and V stream through
-// shared memory in 64-key sub-tiles (rows padded to 136 bf16 so the
-// fragment reads hit 32 distinct banks). Both products run on tensor cores
-// as mma.sync m16n8k16 bf16 with f32 accumulation; the S accumulator's
-// layout is the PV A-fragment's layout, so p goes from registers to the
-// second product without shared memory. The tiling, diag_stop and the
-// order of q-blocks are K3's; rows past seq load as zeros and are not
-// stored.
-// K6a and K6b are one kernel template (flash_fwd_kernel) with a different
-// step per sub-tile. Both run every sub-tile of [0, hi) unmasked; K6b
-// stages only K and adds the scores of sub-tiles 0 and 1 of each k-block
-// into accumulator n-tiles 0-7 and 8-15 (the same fragment layout), while
-// the score products of the block's other sub-tiles still run (mma16816 is
-// asm volatile). Zero keys past seq add exact zeros: K6a's p is
-// bf16(0*scale*0.001) = 0 against a zero V row, K6b adds scores of 0.
 
 #include <cuda_bf16.h>
 #include <math.h>
@@ -178,8 +176,6 @@ namespace {
 
 constexpr int D = 128;        // head_dim; the wrapper refuses anything else
 constexpr int KT = 64;        // keys per shared-memory sub-tile
-constexpr int LDS = D + 8;    // padded shared row, in bf16 elements
-constexpr int MAX_WARPS = 8;  // block_q <= 128
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float STUB_SCALE = 0.001f;  // softmax_stub's p = bf16((s*scale)*0.001)
 
@@ -215,19 +211,6 @@ __device__ __forceinline__ KRange k_range(int i, int seq, int block_q, int block
   return {min(cdiv((i + 1) * block_q, block_k), n_k), (i * block_q) / block_k};
 }
 
-// asm volatile: the compiler keeps every product, including the score
-// products whose result qk_only discards (sub-tiles past the first 128 keys
-// of a k-block); without it they would be dead code and K6b would time
-// less QK^T work than it claims.
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -244,70 +227,12 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 from rows r and r+1 of the same column, packed low|high.
-__device__ __forceinline__ uint32_t ld_col_pair(const __nv_bfloat16* p) {
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
-  return (uint32_t)u[0] | ((uint32_t)u[LDS] << 16);
-}
-
-// s = q.k^T (raw dot products, f32) of one warp's 16 rows against one
-// 64-key sub-tile. Fragment rows: r = 0 is the warp's row g = lane/4,
-// r = 1 is row g + 8; column 2t + (e & 1) of n-tile nt.
-__device__ __forceinline__ void scores(const uint32_t (&qa)[D / 16][4],
-                                       const __nv_bfloat16* __restrict__ Ks,
-                                       float (&s)[KT / 8][4], int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < KT / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) {
-      const __nv_bfloat16* kp = Ks + (nt * 8 + g) * LDS + kk * 16 + 2 * t;
-      mma16816(s[nt], qa[kk], ld_u32(kp), ld_u32(kp + 8));
-    }
-  }
-}
-
-// acc += pa . V for one 16-key slice kk of a sub-tile; pa is its A
-// fragment, bf16 pairs of p in the S fragment's layout.
-__device__ __forceinline__ void pv_slice(const uint32_t (&pa)[4], int kk,
-                                         const __nv_bfloat16* __restrict__ Vs,
-                                         float (&acc)[D / 8][4], int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const __nv_bfloat16* vp = Vs + (kk * 16 + 2 * t) * LDS + nt * 8 + g;
-    mma16816(acc[nt], pa, ld_col_pair(vp), ld_col_pair(vp + 8 * LDS));
-  }
-}
-
-// acc += bf16(p) . V for one sub-tile; p is in the S fragment's layout,
-// which is the A fragment's.
-__device__ __forceinline__ void pv(const float (&p)[KT / 8][4],
-                                   const __nv_bfloat16* __restrict__ Vs,
-                                   float (&acc)[D / 8][4], int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KT / 16; ++kk) {
-    const uint32_t pa[4] = {
-        pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-        pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-    pv_slice(pa, kk, Vs, acc, lane);
-  }
-}
-
 // One online-softmax step of one warp's 16 rows against one 64-key sub-tile
 // whose scores are in s: s becomes p, m and l move on, acc is rescaled.
 // BF16EXP false (K3, K4, K7a): scale is scale*log2e and m lives in the
 // log2 domain. BF16EXP true (K5): scale is 1/sqrt(D), m is in natural-log
-// units, p = bf16(exp(bf16(s - m_new))) and l sums that p. The fragment
-// layout is mma.sync's m16n8 C layout, which is also a warp's slice of a
-// wgmma m64nN accumulator, so the Hopper kernel runs this step as it is.
+// units, p = bf16(exp(bf16(s - m_new))) and l sums that p. s and acc are
+// a warp's slices of wgmma m64nN accumulators, in the m16n8 C layout.
 // MASKED hides the keys hidden() names.
 template <bool BF16EXP, bool MASKED>
 __device__ __forceinline__ void online_softmax(float (&s)[KT / 8][4], float (&acc)[D / 8][4],
@@ -430,58 +355,6 @@ __device__ __forceinline__ void softmax_b(uint32_t (&sb)[KT / 8][2], float (&acc
   }
 }
 
-// A warp's 16 query rows into registers as mma A fragments; a row past
-// seq is zeros.
-__device__ __forceinline__ void load_q(const __nv_bfloat16* __restrict__ q, int qrow, int seq,
-                                       uint32_t (&qa)[D / 16][4], int lane) {
-  const int t = lane & 3;
-  const bool in0 = qrow < seq, in1 = qrow + 8 < seq;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p0 = q + (size_t)qrow * D + kk * 16 + 2 * t;
-    const __nv_bfloat16* p1 = p0 + 8 * D;
-    qa[kk][0] = in0 ? ld_u32(p0) : 0u;
-    qa[kk][1] = in1 ? ld_u32(p1) : 0u;
-    qa[kk][2] = in0 ? ld_u32(p0 + 8) : 0u;
-    qa[kk][3] = in1 ? ld_u32(p1 + 8) : 0u;
-  }
-}
-
-// The rows of one 64-key sub-tile of K (and of V) into the padded shared
-// tiles, 16 bytes a thread; BOUNDED: a row past seq as zeros.
-template <bool WITH_V, bool BOUNDED>
-__device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ k,
-                                           const __nv_bfloat16* __restrict__ v,
-                                           __nv_bfloat16* Ks, __nv_bfloat16* Vs, int k0,
-                                           int seq) {
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int idx = threadIdx.x; idx < KT * D / 8; idx += blockDim.x) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    const bool in = !BOUNDED || k0 + r < seq;
-    *reinterpret_cast<uint4*>(&Ks[r * LDS + c]) =
-        in ? *reinterpret_cast<const uint4*>(&k[(size_t)(k0 + r) * D + c]) : zero;
-    if (WITH_V)
-      *reinterpret_cast<uint4*>(&Vs[r * LDS + c]) =
-          in ? *reinterpret_cast<const uint4*>(&v[(size_t)(k0 + r) * D + c]) : zero;
-  }
-}
-
-// One 64-key sub-tile of K (and of V, unless qk_only) from device memory
-// into the padded shared tiles, a row past seq as zeros (only the
-// sub-tile that seq cuts tests the bound); barriers on both sides so the
-// previous sub-tile is fully consumed and this one fully written.
-template <bool WITH_V = true>
-__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ k,
-                                      const __nv_bfloat16* __restrict__ v,
-                                      __nv_bfloat16* Ks, __nv_bfloat16* Vs, int k0, int seq) {
-  __syncthreads();
-  if (k0 + KT <= seq)
-    stage_rows<WITH_V, false>(k, v, Ks, Vs, k0, seq);
-  else
-    stage_rows<WITH_V, true>(k, v, Ks, Vs, k0, seq);
-  __syncthreads();
-}
-
 // o = bf16(acc * inv) for a warp's 16 rows, each only if it is a row of
 // seq (rows qrow and qrow + 8 may straddle it); inv = 1/l summed over the
 // quad, or 1 for the stubs.
@@ -510,75 +383,16 @@ __device__ __forceinline__ void finish_l(float (&l)[2]) {
   }
 }
 
-// K6a, K6b; scale is 1/sqrt(D).
-template <Step STEP>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 int seq, int block_q, int block_k, int causal, float scale) {
-  static_assert(STEP == Step::kStub || STEP == Step::kQkOnly, "the stubs only");
-  constexpr bool QK = STEP == Step::kQkOnly;
-  __shared__ __align__(16) __nv_bfloat16 Ks[KT * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Vs[QK ? 8 : KT * LDS];
-
-  const int i = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const size_t head = (size_t)blockIdx.y * seq * D;
-  q += head;
-  k += head;
-  if (!QK) v += head;
-  o += head;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int qrow = i * block_q + warp * 16 + (lane >> 2);
-
-  uint32_t qa[D / 16][4];
-  load_q(q, qrow, seq, qa, lane);
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float s[KT / 8][4];
-
-  const int hi = k_range(i, seq, block_q, block_k, causal).hi;
-  const int sub = block_k / KT;
-
-  // every sub-tile of [0, hi) with no mask, no m, no l
-  for (int kt = 0; kt < hi * sub; ++kt) {
-    stage<!QK>(k, v, Ks, Vs, kt * KT, seq);
-    scores(qa, Ks, s, lane);
-    if constexpr (QK) {
-      const int part = kt % sub;  // 0, 1: the block's first 128 keys
-      if (part == 0) {
-#pragma unroll
-        for (int nt = 0; nt < KT / 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[nt][e] += __fmul_rn(s[nt][e], scale);
-      } else if (part == 1) {
-#pragma unroll
-        for (int nt = 0; nt < KT / 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[KT / 8 + nt][e] += __fmul_rn(s[nt][e], scale);
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < KT / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = (s[nt][e] * scale) * STUB_SCALE;
-      pv(s, Vs, acc, lane);
-    }
-  }
-  const float one[2] = {1.f, 1.f};
-  store_out(o, qrow, seq, acc, one, lane);
-}
-
 // ---------------------------------------------------------------------------
-// The Hopper kernel (K3, K4, K5, K7a, K7b, K7c): a TMA ring of K/V
-// sub-tiles and both products on wgmma.
+// The Hopper kernel (every flash kernel): a TMA ring of K/V sub-tiles and
+// both products on wgmma.
 
-// The loop over the unmasked range: one sub-tile a trip (K3, K5, K7b), two
-// with two S sets (K7a, K7c), or one with the next S carried across trips
-// (K4).
+// The loop over the unmasked range: one sub-tile a trip (K3, K5, K6a, K6b,
+// K7b), two with two S sets (K7a, K7c), or one with the next S carried
+// across trips (K4).
 enum class Body { kOne, kPair, kPipe };
 
-constexpr int K3_STAGES = 2;                 // K/V stages in the kOne instances' ring
+constexpr int K3_STAGES = 2;                 // stages in the kOne instances' ring
 constexpr int K7C_STAGES = 4;                // K7c's: a pair holds two at once
 constexpr int K7A_STAGES = 4;                // K7a's: four measured faster than three
 constexpr int K4_STAGES = 3;                 // K4's: kt+1 resident under PV(kt), kt+2 loading
@@ -587,6 +401,11 @@ constexpr int HALF_BYTES = KT * BOX_COLS * 2;  // one 64 x 64 box: 8 KB
 constexpr int TILE_BYTES = 2 * HALF_BYTES;   // 64 rows x D: two boxes, 16 KB
 constexpr int ATOM_BYTES = 1024;             // 8 rows x 128 B: the 128-byte swizzle atom
 constexpr int MAX_WG = 2;                    // consumer warpgroups: block_q 128
+
+// The tiles a stage of STEP's ring holds: K and V, or K alone (K6b).
+__host__ __device__ constexpr int stage_tiles(Step step) {
+  return step == Step::kQkOnly ? 1 : 2;
+}
 
 // One 64-row x 64-column box at (col, row, head) of a (heads, seq, D)
 // tensor map into shared memory, 128-byte swizzled, rows past seq filled
@@ -647,7 +466,7 @@ __device__ __forceinline__ void wgmma_qk(float (&s)[KT / 8][4], uint64_t qd, uin
 }
 
 // acc += P.V over one k16 step (16 keys): m64n128k16 for one warpgroup, P
-// from registers (a warp's A fragment, as mma.sync takes it), the V stage
+// from registers (a warp's m16n8k16 A fragment), the V stage
 // from shared memory. V rows are keys with D contiguous, so B is MN-major:
 // the transpose bit.
 __device__ __forceinline__ void wgmma_pv(float (&acc)[D / 8][4], const uint32_t (&pa)[4],
@@ -681,7 +500,7 @@ __device__ __forceinline__ void qk_wgmma(float (&s)[KT / 8][4], uint32_t q_tile,
 }
 
 // p's bf16 A fragments for the four k16 steps of a sub-tile, in the S
-// fragment's layout (as pv packs them), all made before the products start.
+// fragment's layout, all made before the products start.
 __device__ __forceinline__ void pack_p(const float (&p)[KT / 8][4], uint32_t (&pa)[KT / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < KT / 16; ++kk) {
@@ -708,7 +527,8 @@ __device__ __forceinline__ void pv_wgmma(const uint32_t (&pa)[KT / 16][4], uint3
 // online_softmax on the reference's s*scale, p left in s already rounded
 // to bf16. kBf16S (K7b, K7c): scores_b, rounded as the softmax starts (lazy
 // rounding), then softmax_b, whose packed p pairs are written to pa, the
-// PV A fragments, as they stand.
+// PV A fragments, as they stand. kStub (K6a): no softmax, p = (s*scale) *
+// 0.001 multiplied in that order, m and l untouched; MASKED is never set.
 template <Step STEP, bool MASKED>
 __device__ __forceinline__ void softmax_step(float (&s)[KT / 8][4], uint32_t (&pa)[KT / 16][4],
                                              float (&acc)[D / 8][4], float (&m)[2],
@@ -725,9 +545,33 @@ __device__ __forceinline__ void softmax_step(float (&s)[KT / 8][4], uint32_t (&p
       pa[kk][2] = sb[2 * kk + 1][0];
       pa[kk][3] = sb[2 * kk + 1][1];
     }
+  } else if constexpr (STEP == Step::kStub) {
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = (s[nt][e] * scale) * STUB_SCALE;
   } else {
     online_softmax<STEP == Step::kBf16Exp, MASKED>(s, acc, m, l, scale, qrow, k0, lane, diag_off,
                                                    seq);
+  }
+}
+
+// K6b's step in place of softmax and PV: the scores of a k-block's first
+// 128 keys, s*scale of part 0 (its keys 0-63) added into acc's n-tiles 0-7
+// and of part 1 into n-tiles 8-15; a later part's are discarded.
+static_assert(D == 2 * KT, "K6b's two parts fill acc's columns");
+__device__ __forceinline__ void add_scores(const float (&s)[KT / 8][4], float (&acc)[D / 8][4],
+                                           int part, float scale) {
+  if (part == 0) {
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += __fmul_rn(s[nt][e], scale);
+  } else if (part == 1) {
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[KT / 8 + nt][e] += __fmul_rn(s[nt][e], scale);
   }
 }
 
@@ -743,12 +587,14 @@ __device__ __forceinline__ void pack_step(const float (&s)[KT / 8][4],
 
 // K3 <kFull, kOne, K3_STAGES>, K5 <kBf16Exp, kOne, K3_STAGES>, K7b
 // <kBf16S, kOne, K3_STAGES>, K7c <kBf16S, kPair, K7C_STAGES>, K7a <kFull,
-// kPair, K7A_STAGES> and K4 <kFull, kPipe, K4_STAGES>. Dynamic shared memory, 1024-aligned: STAGES
-// K tiles, STAGES V tiles, then Q (one 16 KB tile per warpgroup). Thread 0
-// drives the ring: it loads Q and the first STAGES sub-tiles, and refills
-// the stage of sub-tile j with j+STAGES once every warp has arrived on that
-// stage's "empty" barrier (release(j)). A warp arrives once its PV of j
-// has been waited for and its next S is issued (kOne: has landed).
+// kPair, K7A_STAGES>, K4 <kFull, kPipe, K4_STAGES>, and the stubs K6a
+// <kStub, kOne, K3_STAGES> and K6b <kQkOnly, kOne, K3_STAGES>. Dynamic
+// shared memory, 1024-aligned: STAGES K tiles, STAGES V tiles (none in
+// K6b), then Q (one 16 KB tile per warpgroup). Thread 0 drives the ring:
+// it loads Q and the first STAGES sub-tiles, and refills the stage of
+// sub-tile j with j+STAGES once every warp has arrived on that stage's
+// "empty" barrier (release(j)). A warp arrives once its PV of j (K6b: its
+// S of j) has been waited for and its next S is issued (kOne: has landed).
 // kPair (K7a, K7c) runs the unmasked range two sub-tiles a body with two S
 // accumulator sets: S_a and S_b are issued, S_b runs on the tensor cores
 // while softmax_a runs, then PV_a, then softmax_b and PV_b. kPipe (K4)
@@ -760,12 +606,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
                        int seq, int block_q, int block_k, int diag_off, float scale) {
+  constexpr bool STUB = STEP == Step::kStub || STEP == Step::kQkOnly;
   extern __shared__ uint4 smem_raw[];  // aligned to 1024 below
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], qbar;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + ATOM_BYTES - 1) & ~(uint32_t)(ATOM_BYTES - 1);
   const uint32_t k_tiles = base, v_tiles = base + STAGES * TILE_BYTES;
-  const uint32_t q_tiles = base + 2 * STAGES * TILE_BYTES;
+  const uint32_t q_tiles = base + stage_tiles(STEP) * STAGES * TILE_BYTES;
 
   const int i = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int head = blockIdx.y;
@@ -774,7 +621,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const KRange range = k_range(i, seq, block_q, block_k, diag_off == 0);
   const int sub = block_k / KT;
-  const int n_tiles = range.hi * sub, n_unmasked = range.n_full * sub;
+  // the stubs run every sub-tile of [0, hi) unmasked
+  const int n_tiles = range.hi * sub, n_unmasked = STUB ? n_tiles : range.n_full * sub;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -789,10 +637,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   auto load_kv = [&](int kt) {  // thread 0 only
     const int s = kt % STAGES;
     const uint32_t bar = smem_u32(&full[s]);
-    mbar_expect_tx(bar, 2 * TILE_BYTES);
+    mbar_expect_tx(bar, stage_tiles(STEP) * TILE_BYTES);
     for (int h = 0; h < 2; ++h) {
       tma_box(k_tiles + s * TILE_BYTES + h * HALF_BYTES, &kmap, h * BOX_COLS, kt * KT, head, bar);
-      tma_box(v_tiles + s * TILE_BYTES + h * HALF_BYTES, &vmap, h * BOX_COLS, kt * KT, head, bar);
+      if constexpr (STEP != Step::kQkOnly)
+        tma_box(v_tiles + s * TILE_BYTES + h * HALF_BYTES, &vmap, h * BOX_COLS, kt * KT, head,
+                bar);
     }
   };
   // this warp is done with sub-tile j's stage; thread 0 refills it with
@@ -923,49 +773,51 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int st = kt % STAGES;
     if (BODY != Body::kPipe || kt + 1 != n_unmasked) scores_landed(s, kt);
     if (kt > 0) release(kt - 1);
-    if (kt < n_unmasked)  // below the diagonal: no mask
-      softmax_step<STEP, false>(s, pa, acc, m, l, scale, qrow, kt * KT, lane, diag_off, seq);
-    else  // the diagonal tail
-      softmax_step<STEP, true>(s, pa, acc, m, l, scale, qrow, kt * KT, lane, diag_off, seq);
-    pack_step<STEP>(s, pa);
-    // the rescaled acc and p's fragments are final before the products
-    // start: a register an instruction defines inside the wgmma chain
-    // would make ptxas serialize it
-    fence_regs(acc);
-    wgmma_fence();
-    pv_wgmma(pa, v_tiles + st * TILE_BYTES, acc);
-    wgmma_commit();
-    // PV is waited for here and not behind the next S: ptxas serializes a
-    // wgmma chain whose accumulators another instruction defines while it
-    // is in flight, which the next S's would be
-    wgmma_wait<0>();
-    fence_regs(acc);
+    if constexpr (STEP == Step::kQkOnly) {
+      // S has landed (every part's, kept or discarded) before its stage is
+      // released in the next trip; acc is written only here, after the wait
+      add_scores(s, acc, kt % sub, scale);
+    } else {
+      if constexpr (STUB)  // every sub-tile unmasked
+        softmax_step<STEP, false>(s, pa, acc, m, l, scale, qrow, kt * KT, lane, diag_off, seq);
+      else if (kt < n_unmasked)  // below the diagonal: no mask
+        softmax_step<STEP, false>(s, pa, acc, m, l, scale, qrow, kt * KT, lane, diag_off, seq);
+      else  // the diagonal tail
+        softmax_step<STEP, true>(s, pa, acc, m, l, scale, qrow, kt * KT, lane, diag_off, seq);
+      pack_step<STEP>(s, pa);
+      // the rescaled acc and p's fragments are final before the products
+      // start: a register an instruction defines inside the wgmma chain
+      // would make ptxas serialize it
+      fence_regs(acc);
+      wgmma_fence();
+      pv_wgmma(pa, v_tiles + st * TILE_BYTES, acc);
+      wgmma_commit();
+      // PV is waited for here and not behind the next S: ptxas serializes a
+      // wgmma chain whose accumulators another instruction defines while it
+      // is in flight, which the next S's would be
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
   }
-  finish_l(l);
-  store_out(o + (size_t)head * seq * D, qrow, seq, acc, l, lane);
+  if constexpr (STUB) {  // no l: acc as it stands
+    const float one[2] = {1.f, 1.f};
+    store_out(o + (size_t)head * seq * D, qrow, seq, acc, one, lane);
+  } else {
+    finish_l(l);
+    store_out(o + (size_t)head * seq * D, qrow, seq, acc, l, lane);
+  }
 }
 
-// Any seq: the last q-block and k-block may be partial.
+// block_q whole warpgroups (64 or 128), block_k a multiple of 64, any
+// seq: the last q-block and k-block may be partial.
 bool bad_shape(int heads, int seq, int block_q, int block_k) {
-  return heads <= 0 || seq <= 0 || block_q <= 0 || block_q % 16 ||
-         block_q > MAX_WARPS * 16 || block_k <= 0 || block_k % KT;
+  return heads <= 0 || seq <= 0 || block_q <= 0 || block_q % 64 || block_q > MAX_WG * 64 ||
+         block_k <= 0 || block_k % KT;
 }
 
 const float SCALE = (float)(1.0 / sqrt((double)D));  // the reference's f32 scale
 const float SCALE_LOG2 = LOG2E / sqrtf((float)D);     // K3's, K4's and K7a's
 
-template <Step STEP>
-int launch(const void* q, const void* k, const void* v, void* o, int heads, int seq,
-           int block_q, int block_k, int causal, void* stream) {
-  if (bad_shape(heads, seq, block_q, block_k) || (STEP == Step::kQkOnly && block_k < D))
-    return cudaErrorInvalidValue;
-  dim3 grid(cdiv(seq, block_q), heads);
-  flash_fwd_kernel<STEP><<<grid, (block_q / 16) * 32, 0, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq, block_q,
-      block_k, causal, SCALE);
-  return (int)cudaGetLastError();
-}
 
 // A tensor map over a contiguous (heads, seq, D) bf16 array: 64 x 64 x 1
 // boxes (one box row is 128 B), 128-byte swizzle, as the wgmma descriptors
@@ -985,9 +837,9 @@ bool tile_map(CUtensorMap* map, const void* ptr, int heads, int seq) {
 }
 
 // The Hopper kernel's dynamic shared memory: 1 KB alignment slack, a K
-// and a V tile per stage, a Q tile per warpgroup.
-constexpr int wgmma_smem(int stages, int warpgroups) {
-  return ATOM_BYTES + 2 * stages * TILE_BYTES + warpgroups * TILE_BYTES;
+// and a V tile per stage (K alone in K6b), a Q tile per warpgroup.
+constexpr int wgmma_smem(Step step, int stages, int warpgroups) {
+  return ATOM_BYTES + stage_tiles(step) * stages * TILE_BYTES + warpgroups * TILE_BYTES;
 }
 
 // An instance's dynamic shared memory allowed on the current device, once
@@ -1003,26 +855,28 @@ cudaError_t allow_wgmma_smem() {
   if (done[dev].load()) return cudaSuccess;
   err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<STEP, BODY, STAGES>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             wgmma_smem(STAGES, MAX_WG));
+                             wgmma_smem(STEP, STAGES, MAX_WG));
   if (err == cudaSuccess) done[dev].store(true);
   return err;
 }
 
-// K3, K4, K5, K7a, K7b, K7c: block_q 64 or 128 (whole warpgroups), block_k
-// a multiple of 64, any seq. No fallback: a map that cannot be encoded or a
-// refused launch is an error the caller raises.
+// Every flash kernel: bad_shape's tiling, any seq; K6b also block_k >= D,
+// so a k-block's first two parts are its first 128 keys, and no V (v is
+// null, and cuTensorMapEncodeTiled fails on a null address). No fallback:
+// a map that cannot be encoded or a refused launch is an error the caller
+// raises.
 template <Step STEP, Body BODY, int STAGES>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int heads, int seq,
                  int block_q, int block_k, int causal, float scale, void* stream) {
-  if (bad_shape(heads, seq, block_q, block_k) || (block_q != 64 && block_q != 128))
+  if (bad_shape(heads, seq, block_q, block_k) || (STEP == Step::kQkOnly && block_k < D))
     return cudaErrorInvalidValue;
-  CUtensorMap maps[3];
+  CUtensorMap maps[3] = {};
   if (!tile_map(&maps[0], q, heads, seq) || !tile_map(&maps[1], k, heads, seq) ||
-      !tile_map(&maps[2], v, heads, seq))
+      (stage_tiles(STEP) == 2 && !tile_map(&maps[2], v, heads, seq)))
     return cudaErrorInvalidValue;
   const cudaError_t attr = allow_wgmma_smem<STEP, BODY, STAGES>();
   if (attr != cudaSuccess) return (int)attr;
-  const int smem = wgmma_smem(STAGES, block_q / 64);
+  const int smem = wgmma_smem(STEP, STAGES, block_q / 64);
   dim3 grid(cdiv(seq, block_q), heads);
   flash_fwd_wgmma_kernel<STEP, BODY, STAGES><<<grid, block_q * 2, smem, (cudaStream_t)stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), seq, block_q, block_k,
@@ -1049,13 +903,14 @@ extern "C" int flash_fwd_bf16exp(const void* q, const void* k, const void* v, vo
 extern "C" int flash_softmax_stub(const void* q, const void* k, const void* v, void* o,
                                   int heads, int seq, int block_q, int block_k, int causal,
                                   void* stream) {
-  return launch<Step::kStub>(q, k, v, o, heads, seq, block_q, block_k, causal, stream);
+  return launch_wgmma<Step::kStub, Body::kOne, K3_STAGES>(q, k, v, o, heads, seq, block_q,
+                                                          block_k, causal, SCALE, stream);
 }
 
 extern "C" int flash_qk_only(const void* q, const void* k, void* o, int heads, int seq,
                              int block_q, int block_k, int causal, void* stream) {
-  return launch<Step::kQkOnly>(q, k, nullptr, o, heads, seq, block_q, block_k, causal,
-                               stream);
+  return launch_wgmma<Step::kQkOnly, Body::kOne, K3_STAGES>(q, k, nullptr, o, heads, seq, block_q,
+                                                            block_k, causal, SCALE, stream);
 }
 
 extern "C" int flash_fwd_bf16s(const void* q, const void* k, const void* v, void* o,

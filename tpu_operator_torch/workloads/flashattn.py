@@ -12,12 +12,12 @@ All five variants of the reference are ported, each to a kernel in
 with the next scores issued before the current softmax), ``bf16exp`` (K5,
 ``exp`` of a bf16 difference), and the attribution instruments
 ``softmax_stub`` and ``qk_only`` (K6a, K6b), whose numerics are wrong by
-design. K3, K4 and K5 are built for Hopper: K/V stream through a TMA ring
-and both products run on ``wgmma``, one warpgroup per 64 query rows, so
-they take ``block_q`` 64 or 128; K4 keeps the next scores in flight on the
-tensor cores while the current softmax runs. K6a and K6b keep the
-synchronous ``mma.sync`` structure (``block_q`` a multiple of 16 up to
-128). Each has a plain version below in torch ops that follows the
+design. All five are instances of one Hopper kernel: K/V stream through a
+TMA ring and the products run on ``wgmma``, one warpgroup per 64 query
+rows, so they take ``block_q`` 64 or 128; K4 keeps the next scores in
+flight on the tensor cores while the current softmax runs. The stubs are
+K3's structure minus a phase: K6a without the softmax, K6b also without
+PV and V. Each has a plain version below in torch ops that follows the
 reference per ``block_k`` block.
 
 Every kernel takes any ``seq`` the reference's probe takes
@@ -30,10 +30,8 @@ plain versions take the same tiling by clipped slices.
 ``flash_attention`` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the variant's kernel or raises. ``run_flashattn_breakdown``
 times the instruments and attributes K3's time to the matmuls, the softmax,
-PV and pipelining. K3 and K4 share the Hopper structure, so
-``pipeline_recovered_us`` reads what the overlap buys there; the stubs
-keep the synchronous one, so the other three terms set the Hopper K3
-against it.
+PV and pipelining. All four variants it times share K3's structure, so
+each term reads one phase of K3 itself.
 """
 
 from __future__ import annotations
@@ -59,12 +57,12 @@ LANES = 128  # head_dim the kernel takes
 BLOCK_Q_CAP = 128
 BLOCK_K_CAP = 128
 KERNEL_KEY_TILE = 64
-KERNEL_MAX_BLOCK_Q = 128  # K6a, K6b: block_q/16 warps of 16 rows, at most 8
 WGMMA_BLOCK_Q = (64, 128)  # the Hopper kernel's: whole warpgroups
-# the launch counters of the kernels that run on the Hopper kernel
+# the launch counters of the kernels that run on the Hopper kernel: every
+# flash kernel
 WGMMA_KERNELS = (
-    "flash_fwd", "flash_fwd_pipelined", "flash_fwd_bf16exp", "flash_fwd_paired",
-    "flash_fwd_bf16s", "flash_fwd_paired16",
+    "flash_fwd", "flash_fwd_pipelined", "flash_fwd_bf16exp", "flash_softmax_stub",
+    "flash_qk_only", "flash_fwd_paired", "flash_fwd_bf16s", "flash_fwd_paired16",
 )
 # The reference's probe (``_default_block`` with caps 256/1024) tiles every
 # seq that is a multiple of 8, and every seq up to its block cap with one
@@ -312,18 +310,13 @@ def flash_attention(
 
 def check_kernel_tiling(name: str, block_q: int, block_k: int) -> None:
     """Raise ``ValueError`` unless the kernel counted as ``name`` takes
-    ``(block_q, block_k)`` on the card: the Hopper kernel's (K3, K4, K5,
-    K7a, K7b, K7c, ``WGMMA_KERNELS``) ``block_q`` 64 or 128, the others
-    (K6a, K6b) a multiple of 16 up to 128; every kernel ``block_k`` a
-    multiple of 64. ``_launch`` calls it before any CUDA call."""
-    if name in WGMMA_KERNELS:
-        q_ok, takes = block_q in WGMMA_BLOCK_Q, "block_q 64 or 128"
-    else:
-        q_ok = block_q > 0 and block_q % 16 == 0 and block_q <= KERNEL_MAX_BLOCK_Q
-        takes = f"block_q a multiple of 16 up to {KERNEL_MAX_BLOCK_Q}"
-    if not q_ok or block_k <= 0 or block_k % KERNEL_KEY_TILE:
+    ``(block_q, block_k)`` on the card: every flash kernel runs on the
+    Hopper kernel (``WGMMA_KERNELS``), which takes ``block_q`` 64 or 128
+    and ``block_k`` a multiple of 64. ``_launch`` calls it before any CUDA
+    call."""
+    if block_q not in WGMMA_BLOCK_Q or block_k <= 0 or block_k % KERNEL_KEY_TILE:
         raise ValueError(
-            f"{name} takes {takes} and block_k a multiple of {KERNEL_KEY_TILE}, "
+            f"{name} takes block_q 64 or 128 and block_k a multiple of {KERNEL_KEY_TILE}, "
             f"got {block_q}/{block_k}"
         )
 
@@ -587,7 +580,11 @@ def run_flashattn_breakdown(
     """Measured phase attribution of K3's time: time ``full``,
     ``pipelined``, ``softmax_stub`` and ``qk_only`` at one causal shape
     and split one block pair's cost into the matmuls, the softmax, PV and
-    what pipelining recovers (``_attribution``).
+    what pipelining recovers (``_attribution``). All four run on K3's
+    Hopper structure (the stubs on its body, ring depth and warpgroups,
+    each minus one phase), so ``softmax_added_us`` (K3 - K6a) is the
+    softmax's cost in K3 and ``pv_added_us`` (K6a - K6b) that of PV and
+    V's streaming.
 
     Each variant's ``tflops`` is over the work IT does (``qk_only`` does
     half the matmul FLOPs); ``per_pair_us``, microseconds per processed
