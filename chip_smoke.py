@@ -35,9 +35,13 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    cost per call of each stays within ``K3_HOST_LIMIT_US`` of a launch that
    encodes no tensor map (K1 on a small buffer), and time kernel, plain
    version and one library call at the main path's shapes;
-3. run the main path in-process at its full operating points (matmul 8192,
-   membw 2 GiB, flash attention 8192 x 8 heads) with the launch counts set
-   to 0 just before and read just after; then, each counted apart, the
+3. hold one step of the matmul chain at size 1000, where ``1/size`` is no
+   power of two, against the host's f32 product, scaled and then rounded
+   to bf16 once (each element within one bf16 ulp and the f32 sum's
+   reordering, at most ``MATMUL_MISS_SHARE`` of them off); run the main path in-process at its
+   full operating points (matmul 8192, membw 2 GiB, flash attention 8192 x
+   8 heads) with the launch counts set to 0 just before and read just
+   after; then, each counted apart, the
    flash probe with the card's default blocks at seq 4160, which must run
    64/64, and at seq 8200, which must run 128/128 with a partial last
    block, each launching K3 and passing the oracle;
@@ -56,8 +60,17 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    before and read
    just after, run ``run_experiment`` with all three modes at 8192 x 8
    heads, each of K7a-c launched; then time K7a-c;
-4. run the validator CLI for the same three components as subprocesses,
-   each writing its status file into a temporary directory.
+5. (after 3c, before 4) the multi-device path on every card
+   (``torch.cuda.device_count()`` ranks, NCCL, one process a card):
+   ``run_burnin`` (10 steps), ``run_ring_probe``, ``run_ringattn``,
+   ``run_pipeline`` and ``run_moe`` at the validator's full widths, each
+   of which must be ``ok``, in one JSON line with each result and its wall
+   time, then the burn-in's seconds a step, the card's name and power
+   limit and ``entry.dryrun_multichip``; this path launches none of
+   K1-K7c;
+4. run the validator CLI for the same three components and the five
+   multi-device ones as subprocesses, each writing its status file into a
+   temporary directory.
 
 Then it prints one ``kernels`` JSON line, each kernel's launches read from
 the path that runs it (K1-K3 phase 3, K4-K6b phase 3b, K7a-c phase 3c).
@@ -173,6 +186,24 @@ HOPPER_VARIANT_SHAPES = K3_EDGE_SHAPES + [ODD_UNMASKED_SHAPE]
 # no kernel takes; 8200 (8192 + 8), which 128 does not divide
 PROBE_EDGES = [(4160, (64, 64)), (8200, (128, 128))]
 BF16_ULP = 2.0**-7  # bf16 keeps 8 significant bits: one ulp is at most 2^-7 of |x|
+# the matmul step against the host's product: a sum in another order lands
+# on the other side of a bf16 rounding boundary at a few elements; rounding
+# the sum before the scale as well moves most of them (70% on the CPU)
+MATMUL_CHECK_SIZE = 1000
+MATMUL_MISS_SHARE = 0.01
+CLI_CHAIN = [
+    ("cuda", ["--matmul-size", "8192"], "cuda-ready"),
+    ("membw", ["--membw-size-mb", "2048"], "membw-ready"),
+    ("flashattn", ["--flashattn-seq", "8192", "--flashattn-heads", "8"], "flashattn-ready"),
+]
+# the multi-device components at their defaults: every card, full widths
+MULTIDEVICE_CLI = [
+    ("slice", [], "slice-ready"),
+    ("ici", [], "ici-ready"),
+    ("ringattn", [], "ringattn-ready"),
+    ("pipeline", [], "pipeline-ready"),
+    ("moe", [], "moe-ready"),
+]
 
 
 def log(msg: str) -> None:
@@ -570,6 +601,30 @@ def variant_rows(fa, qkv, peak_flops, peak_bytes) -> list:
     return rows
 
 
+def check_matmul_rounding() -> None:
+    """One step of the chain on the card against the host's f32 product,
+    scaled by ``1/size`` and then rounded to bf16 once, as the reference
+    does."""
+    from tpu_operator_torch.workloads.matmul import make_matmul_step
+
+    size = MATMUL_CHECK_SIZE
+    fn, (a, b) = make_matmul_step(size=size, depth=1)
+    got = fn(a, b).cpu().float()
+    a32, b32 = a.cpu().float(), b.cpu().float()
+    want = ((a32 @ b32) * (1.0 / size)).to(torch.bfloat16).float()
+    off = got != want
+    share = float(off.float().mean())
+    # one bf16 ulp, plus what summing in another order may move an f32 sum
+    # (size * 2^-24 * sum |a b|) where cancellation leaves a tiny value
+    order = size * 2.0**-24 * (a32.abs() @ b32.abs()) * (1.0 / size)
+    bound = BF16_ULP * torch.maximum(got.abs(), want.abs()) + order
+    beyond = int(((got - want).abs() > bound).sum())
+    log(f"matmul step at {size}: {int(off.sum())} of {got.numel()} elements off the host's "
+        f"once-rounded product ({share:.2e}), {beyond} beyond one bf16 ulp")
+    if beyond or share > MATMUL_MISS_SHARE:
+        raise RuntimeError(f"the matmul step does not round once like the reference at {size}")
+
+
 def phase_main_path() -> dict:
     from tpu_operator_torch import _build
     from tpu_operator_torch.entry import entry
@@ -582,6 +637,7 @@ def phase_main_path() -> dict:
     out = fn(a, b)
     if out.shape != (1024, 1024) or not torch.isfinite(out.float()).all():
         raise RuntimeError("entry() chain gave a wrong shape or non-finite values")
+    check_matmul_rounding()
     mm = run_matmul_validation(size=8192)
     bw = run_membw_probe(size_mb=2048)
     fl = run_flashattn_probe(seq=8192, heads=8)
@@ -766,12 +822,66 @@ def phase_structural(partial: dict) -> list:
     return rows
 
 
-def phase_cli() -> None:
-    chain = [
-        ("cuda", ["--matmul-size", "8192"], "cuda-ready"),
-        ("membw", ["--membw-size-mb", "2048"], "membw-ready"),
-        ("flashattn", ["--flashattn-seq", "8192", "--flashattn-heads", "8"], "flashattn-ready"),
+def burnin_step_seconds(world, steps: int) -> float:
+    """Seconds a burn-in train step takes at the validator's widths, the
+    slowest rank's, after one warm-up step (a rank function)."""
+    import torch.distributed as dist
+
+    from tpu_operator_torch.workloads.burnin import build_burnin
+    from tpu_operator_torch.workloads.mesh import all_reduce_scalar
+
+    _, train_step, params, (x, y) = build_burnin(world)
+    params, _ = train_step(params, x, y)
+    world.sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, loss = train_step(params, x, y)
+    world.sync()
+    return all_reduce_scalar((time.perf_counter() - t0) / steps, dist.ReduceOp.MAX, world.device)
+
+
+def phase_multidevice() -> None:
+    """The five probes and the dryrun on every card over NCCL; fails unless
+    each is ok."""
+    from tpu_operator_torch.entry import dryrun_multichip
+    from tpu_operator_torch.workloads.burnin import run_burnin
+    from tpu_operator_torch.workloads.mesh import spawn_world
+    from tpu_operator_torch.workloads.moe import run_moe
+    from tpu_operator_torch.workloads.pipeline import run_pipeline
+    from tpu_operator_torch.workloads.ring import run_ring_probe
+    from tpu_operator_torch.workloads.ringattn import run_ringattn
+
+    n = torch.cuda.device_count()
+    probes = [
+        ("burnin", lambda: run_burnin(n, steps=10)),
+        ("ring", lambda: run_ring_probe(n)),
+        ("ringattn", lambda: run_ringattn(n)),
+        ("pipeline", lambda: run_pipeline(n)),
+        ("moe", lambda: run_moe(n)),
     ]
+    results, failed = {}, []
+    for name, run in probes:
+        t0 = time.perf_counter()
+        res = run()
+        results[name] = {**res.to_dict(), "wall_s": time.perf_counter() - t0}
+        if not res.ok:
+            failed.append(f"{name}: {res.error}")
+    step_s = spawn_world(burnin_step_seconds, n, "cuda", 10)[0]
+    log(json.dumps({"multidevice": {"n_devices": n, "backend": "nccl", **results,
+                                    "burnin_step_s": step_s}}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    log(f"multi-device path on: {smi.stdout.strip() or smi.stderr.strip()}")
+    if failed:
+        raise RuntimeError(f"the multi-device path failed on {n} cards: {failed}")
+    t0 = time.perf_counter()
+    dryrun_multichip(n)
+    log(f"dryrun_multichip({n}): {time.perf_counter() - t0:.1f} s")
+
+
+def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
             t0 = time.perf_counter()
@@ -787,6 +897,8 @@ def phase_cli() -> None:
                 )
             with open(path) as f:
                 payload = json.load(f)
+            if payload.get("ok") is not True:
+                raise RuntimeError(f"CLI {component} wrote {status_file} without ok: {payload}")
             log(f"cli {component}: rc=0 {time.perf_counter() - t0:.1f} s "
                 f"{status_file}={json.dumps(payload)}")
 
@@ -804,7 +916,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = (attribution if k["name"] in variant_kernels else launches)[k["name"]]
     kernels += phase_structural(partial)
-    phase_cli()
+    phase_multidevice()
+    phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

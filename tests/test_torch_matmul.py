@@ -35,6 +35,21 @@ def test_chain_matches_jax(seed):
     assert float(np.abs(got - want).max()) <= tol
 
 
+@pytest.mark.parametrize("size", [96, 200, 1000])
+def test_chain_rounds_once_like_the_reference(size):
+    """Depth 4 at sizes whose 1/size is no power of two, where rounding
+    the f32 sum to bf16 before the scale would differ from the reference at
+    most elements: the port scales in f32 and rounds once, as
+    ``make_matmul_step`` does, so the two chains agree bit for bit."""
+    depth = 4
+    a, b = bf16_normal((size, size), size), bf16_normal((size, size), size + 1)
+    fn_j, _ = ref.make_matmul_step(size=size, depth=depth)
+    want = np.asarray(fn_j(jnp.asarray(a), jnp.asarray(b)))
+    fn_t, _ = port.make_matmul_step(size=size, depth=depth, device="cpu")
+    got = convert.to_numpy(fn_t(convert.to_torch(a), convert.to_torch(b)), jnp.bfloat16)
+    assert got.tobytes() == want.tobytes()
+
+
 def test_result_to_dict_keys_match():
     args = (True, "kind", "cpu", 1, 256, 2, 0.5, 1.0, None, None)
     assert port.MatmulResult(*args).to_dict().keys() == ref.MatmulResult(*args).to_dict().keys()

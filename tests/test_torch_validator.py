@@ -11,6 +11,7 @@ import sys
 import pytest
 import torch
 
+from tpu_operator.consts import PROBE_STATUS_FILES
 from tpu_operator.validator.metrics import payload_perf
 from tpu_operator_torch import _build
 from tpu_operator_torch.validator import components as comp
@@ -22,7 +23,14 @@ CLI_CASES = [
     ("cuda", ["--matmul-size", "256"], "cuda-ready", "tflops"),
     ("membw", ["--membw-size-mb", "2"], "membw-ready", "gbps"),
     ("flashattn", ["--flashattn-seq", "256", "--flashattn-heads", "2"], "flashattn-ready", None),
+    # the multi-device components, each in a gloo world of two
+    ("slice", ["--expect-devices", "2"], "slice-ready", None),
+    ("ici", ["--expect-devices", "2"], "ici-ready", None),
+    ("ringattn", ["--expect-devices", "2", "--ringattn-seq-len", "256"], "ringattn-ready", None),
+    ("pipeline", ["--expect-devices", "2"], "pipeline-ready", None),
+    ("moe", ["--expect-devices", "2"], "moe-ready", None),
 ]
+MULTIDEVICE = ["slice", "ici", "ringattn", "pipeline", "moe"]
 
 
 @pytest.mark.parametrize("component,args,status_file,perf_key", CLI_CASES)
@@ -36,6 +44,10 @@ def test_cli_writes_status_file(tmp_path, component, args, status_file, perf_key
     with open(tmp_path / status_file) as f:
         payload = json.load(f)
     assert payload["ok"] is True
+    if component in MULTIDEVICE:
+        # a probe the reference exporter publishes, with its world's size
+        assert status_file in PROBE_STATUS_FILES
+        assert payload.get("n_devices", payload.get("n_stages", payload.get("n_experts"))) == 2
     if perf_key is not None:
         # the reference exporter's canonical (flat) read, unchanged
         perf = payload_perf(payload)
@@ -67,26 +79,38 @@ def no_gpu(monkeypatch):
 
 
 def _entry_points():
-    from tpu_operator_torch.entry import entry
+    from tpu_operator_torch.entry import dryrun_multichip, entry
+    from tpu_operator_torch.workloads.burnin import run_burnin
     from tpu_operator_torch.workloads.flashattn import run_flashattn_probe
     from tpu_operator_torch.workloads.matmul import run_matmul_validation
     from tpu_operator_torch.workloads.membw import run_membw_probe
+    from tpu_operator_torch.workloads.moe import run_moe
+    from tpu_operator_torch.workloads.pipeline import run_pipeline
+    from tpu_operator_torch.workloads.ring import run_ring_probe
+    from tpu_operator_torch.workloads.ringattn import run_ringattn
 
     return {
         "entry": lambda: entry(),
         "matmul": lambda: run_matmul_validation(size=256, depth=1, iters=1),
         "membw": lambda: run_membw_probe(size_mb=2, iters=1),
         "flashattn": lambda: run_flashattn_probe(seq=256, heads=1),
+        "dryrun": lambda: dryrun_multichip(1),
+        "burnin": lambda: run_burnin(1, steps=1),
+        "ring": lambda: run_ring_probe(1),
+        "ringattn": lambda: run_ringattn(1, seq_len=64),
+        "pipeline": lambda: run_pipeline(1),
+        "moe": lambda: run_moe(1),
     }
 
 
-@pytest.mark.parametrize("name", ["entry", "matmul", "membw", "flashattn"])
+@pytest.mark.parametrize("name", ["entry", "matmul", "membw", "flashattn", "dryrun", "burnin",
+                                  "ring", "ringattn", "pipeline", "moe"])
 def test_entry_points_raise_without_gpu(no_gpu, name):
     with pytest.raises(RuntimeError, match="expected CUDA"):
         _entry_points()[name]()
 
 
-@pytest.mark.parametrize("component", ["cuda", "membw", "flashattn"])
+@pytest.mark.parametrize("component", ["cuda", "membw", "flashattn", *MULTIDEVICE])
 def test_cli_fails_without_gpu_unless_allow_cpu(no_gpu, tmp_path, component):
     assert cli.main(["--component", component, "--output-dir", str(tmp_path)]) == 1
     assert not os.listdir(tmp_path)
@@ -132,7 +156,11 @@ def test_cli_environment_defaults(monkeypatch):
     monkeypatch.setenv("FLASHATTN_HEADS", "")
     monkeypatch.setenv("MEMBW_MIN_UTILIZATION", "0.7")
     monkeypatch.setenv("MEMBW_SIZE_MB", "oops")
+    monkeypatch.setenv("RINGATTN_SEQ_LEN", "1024")
     args = cli.build_parser().parse_args(["--component", "membw"])
     assert (args.flashattn_seq, args.flashattn_heads) == (4096, 8)
     assert (args.membw_min_utilization, args.membw_size_mb) == (0.7, 0)
     assert args.matmul_size == 4096 and not args.allow_cpu
+    assert args.ringattn_seq_len == 1024 and args.expect_devices is None
+    monkeypatch.setenv("EXPECT_GPU_DEVICES", "4")
+    assert cli.build_parser().parse_args(["--component", "ici"]).expect_devices == 4

@@ -1,5 +1,5 @@
-"""PyTorch port of tpu-operator's single-device compute chain for one
-NVIDIA H100 (sm_90a).
+"""PyTorch port of tpu-operator's compute chain for NVIDIA H100 cards
+(sm_90a).
 
 The validator's chain runs here as it does in ``tpu_operator``: the bf16
 matmul chain (``workloads/matmul.py``), the HBM bandwidth probe
@@ -7,6 +7,11 @@ matmul chain (``workloads/matmul.py``), the HBM bandwidth probe
 (``workloads/flashattn.py``), reached through ``validator/`` and the
 ``python -m tpu_operator_torch.validator`` CLI. The copy and attention
 kernels are CUDA C++ under ``csrc/``, built at first use by ``_build.py``.
+The multi-device path (``entry.dryrun_multichip`` and the validator's
+``slice``, ``ici``, ``ringattn``, ``pipeline`` and ``moe`` components) runs
+a world of processes over ``torch.distributed`` (``workloads/mesh.py``):
+NCCL, one card a rank, or gloo on the CPU; it launches none of the
+package's kernels.
 
 The package imports ``torch`` and never ``jax`` or ``tpu_operator``.
 Entry points run on ``cuda`` unless the caller asks for the CPU, where each

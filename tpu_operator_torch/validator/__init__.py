@@ -1,1 +1,2 @@
-"""The port's validator: components and the CLI for the compute chain."""
+"""The port's validator: components and the CLI for the compute chain
+and the multi-device probes."""

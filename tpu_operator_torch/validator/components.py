@@ -8,9 +8,16 @@ wait on. Payloads keep the JAX package's flat schema: ``tflops`` and
   cuda      → bf16 matmul chain in-process, with TFLOPS (``cuda-ready``)
   membw     → device-memory bandwidth probe (``membw-ready``)
   flashattn → flash-attention probe (``flashattn-ready``)
+  slice     → dp × tp burn-in across the cards (``slice-ready``)
+  ici       → ring probe: per-link health + bandwidth (``ici-ready``)
+  ringattn  → ring-attention context-parallel probe (``ringattn-ready``)
+  pipeline  → GPipe pipeline-parallel probe (``pipeline-ready``)
+  moe       → expert-parallel all_to_all probe (``moe-ready``)
 
 ``expect_gpu=True`` (the default) requires a CUDA card; ``False`` accepts
-the CPU when no card is visible (the CLI's ``--allow-cpu``).
+the CPU when no card is visible (the CLI's ``--allow-cpu``). The last five
+run a world of ranks (``workloads/mesh.py``): ``expect_devices=None``
+means every card on ``cuda`` and one rank on the CPU.
 """
 
 from __future__ import annotations
@@ -120,3 +127,98 @@ def validate_membw(
         )
     status.write(consts.STATUS_FILE_MEMBW, info)
     return info
+
+
+# ---------------------------------------------------------------------------
+# the multi-device components: one world of ranks each
+# ---------------------------------------------------------------------------
+
+
+def validate_slice(
+    status: StatusFiles,
+    steps: int = 10,
+    expect_devices: Optional[int] = None,
+    expect_gpu: bool = True,
+) -> dict:
+    """Multi-card burn-in: a dp × tp train step exercising every link."""
+    from tpu_operator_torch.workloads.burnin import run_burnin
+
+    res = run_burnin(n_devices=expect_devices, steps=steps, device=_device(expect_gpu))
+    if not res.ok:
+        raise ValidationError(f"slice burn-in failed: {res.error or 'loss did not decrease'}")
+    status.write(consts.STATUS_FILE_SLICE, res.to_dict())
+    return res.to_dict()
+
+
+def validate_ici(
+    status: StatusFiles,
+    expect_devices: Optional[int] = None,
+    payload_mb: float = 4.0,
+    expect_gpu: bool = True,
+) -> dict:
+    """Rotate a payload around the full ring of cards via ppermute; every
+    shard must return bit-exact (isolates individual links, unlike the
+    aggregate burn-in)."""
+    from tpu_operator_torch.workloads.ring import run_ring_probe
+
+    res = run_ring_probe(
+        n_devices=expect_devices, payload_mb=payload_mb, device=_device(expect_gpu)
+    )
+    if not res.ok:
+        raise ValidationError(
+            f"ICI ring probe failed: {res.error or 'integrity mismatch'}"
+        )
+    status.write(consts.STATUS_FILE_ICI, res.to_dict())
+    return res.to_dict()
+
+
+def validate_ringattn(
+    status: StatusFiles,
+    expect_devices: Optional[int] = None,
+    seq_len: int = 2048,
+    expect_gpu: bool = True,
+) -> dict:
+    """Long-context readiness: blockwise ring attention over an ``sp`` axis
+    (K/V blocks rotated via ppermute, online-softmax accumulation), checked
+    against single-pass full attention."""
+    from tpu_operator_torch.workloads.ringattn import run_ringattn
+
+    res = run_ringattn(n_devices=expect_devices, seq_len=seq_len, device=_device(expect_gpu))
+    if not res.ok:
+        raise ValidationError(
+            f"ring-attention probe failed: {res.error or 'divergence'}"
+        )
+    status.write(consts.STATUS_FILE_RINGATTN, res.to_dict())
+    return res.to_dict()
+
+
+def validate_pipeline(
+    status: StatusFiles, expect_devices: Optional[int] = None, expect_gpu: bool = True
+) -> dict:
+    """Pipeline-parallel readiness: a GPipe micro-batch pipeline (one stage
+    a rank, activations streamed stage to stage via ppermute), checked
+    against the stages applied in order on one device."""
+    from tpu_operator_torch.workloads.pipeline import run_pipeline
+
+    res = run_pipeline(n_devices=expect_devices, device=_device(expect_gpu))
+    if not res.ok:
+        raise ValidationError(
+            f"pipeline probe failed: {res.error or 'divergence'}"
+        )
+    status.write(consts.STATUS_FILE_PIPELINE, res.to_dict())
+    return res.to_dict()
+
+
+def validate_moe(
+    status: StatusFiles, expect_devices: Optional[int] = None, expect_gpu: bool = True
+) -> dict:
+    """Expert-parallel readiness: a top-1-gated MoE layer with all_to_all
+    token dispatch and combine, checked against dense per-token expert
+    application; capacity overflow fails loudly."""
+    from tpu_operator_torch.workloads.moe import run_moe
+
+    res = run_moe(n_devices=expect_devices, device=_device(expect_gpu))
+    if not res.ok:
+        raise ValidationError(f"moe probe failed: {res.error or 'divergence'}")
+    status.write(consts.STATUS_FILE_MOE, res.to_dict())
+    return res.to_dict()

@@ -1,5 +1,5 @@
 """Validator CLI of the port: ``python -m tpu_operator_torch.validator
---component cuda|membw|flashattn``.
+--component cuda|membw|flashattn|slice|ici|ringattn|pipeline|moe``.
 
 The same flags and environment defaults as the JAX package's
 ``tpu-validator`` for these components. Exit 0 when the component passed
@@ -17,7 +17,7 @@ from tpu_operator_torch import consts
 from tpu_operator_torch.validator import components as comp
 from tpu_operator_torch.validator.components import StatusFiles
 
-COMPONENTS = ("cuda", "membw", "flashattn")
+COMPONENTS = ("cuda", "membw", "flashattn", "slice", "ici", "ringattn", "pipeline", "moe")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -58,6 +58,12 @@ def build_parser():
     )
     p.add_argument("--matmul-size", type=int, default=4096)
     p.add_argument(
+        "--ringattn-seq-len",
+        type=int,
+        default=_env_int("RINGATTN_SEQ_LEN", 2048),
+        help="total sequence length for the context-parallel probe",
+    )
+    p.add_argument(
         "--flashattn-seq",
         type=int,
         default=_env_int("FLASHATTN_SEQ", 8192),
@@ -80,6 +86,13 @@ def build_parser():
         type=int,
         default=_env_int("MEMBW_SIZE_MB", 0),
         help="probe buffer MiB (0 = auto: 2048 on the GPU, tiny on the CPU)",
+    )
+    p.add_argument(
+        "--expect-devices",
+        type=int,
+        default=_env_int("EXPECT_GPU_DEVICES", 0) or None,
+        help="ranks of the multi-device components (default: every card; "
+        "one rank on the CPU)",
     )
     p.add_argument(
         "--allow-cpu",
@@ -109,12 +122,35 @@ def main(argv=None) -> int:
                 heads=args.flashattn_heads,
                 expect_gpu=expect_gpu,
             )
-        else:
+        elif args.component == "membw":
             info = comp.validate_membw(
                 status,
                 expect_gpu=expect_gpu,
                 min_utilization=args.membw_min_utilization,
                 size_mb=args.membw_size_mb,
+            )
+        elif args.component == "slice":
+            info = comp.validate_slice(
+                status, expect_devices=args.expect_devices, expect_gpu=expect_gpu
+            )
+        elif args.component == "ici":
+            info = comp.validate_ici(
+                status, expect_devices=args.expect_devices, expect_gpu=expect_gpu
+            )
+        elif args.component == "ringattn":
+            info = comp.validate_ringattn(
+                status,
+                expect_devices=args.expect_devices,
+                seq_len=args.ringattn_seq_len,
+                expect_gpu=expect_gpu,
+            )
+        elif args.component == "pipeline":
+            info = comp.validate_pipeline(
+                status, expect_devices=args.expect_devices, expect_gpu=expect_gpu
+            )
+        else:
+            info = comp.validate_moe(
+                status, expect_devices=args.expect_devices, expect_gpu=expect_gpu
             )
         log.info("%s validation OK: %s", args.component, json.dumps(info)[:400])
         return 0

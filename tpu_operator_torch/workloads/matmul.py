@@ -1,18 +1,13 @@
 """bf16 matmul validation chain — proves the card and measures it.
 
 The counterpart of the JAX package's ``workloads/matmul.py``: a chain of
-``depth`` bf16 products with f32 accumulation, each followed by ``× 1/size``
-in bf16, timed as a serial chain (each step feeds the next) with the fixed
-launch/sync overhead cancelled (``workloads/timing.py``). The product is a
-plain dense GEMM, which the reference left to XLA; here it goes to
-``torch.matmul`` (cuBLAS), and no kernel of this package replaces it.
-
-Rounding: the reference rounds the f32 product to bf16 only after the
-``1/size`` scale; ``torch.matmul`` on bf16 rounds the f32 sum to bf16 first
-and the scale is applied to the bf16 value. For a power-of-two ``size``
-(1024, 4096, 8192) the scale only shifts the exponent, so both give the
-same bf16 value up to summation order. For other sizes the two roundings
-differ by at most one bf16 ulp each (relative 2^-8 per step).
+``depth`` bf16 products with f32 accumulation, each scaled by ``1/size``
+and rounded once to bf16, timed as a serial chain (each step feeds the
+next) with the fixed launch/sync overhead cancelled (``workloads/timing.py``).
+The product is a plain dense GEMM, which the reference left to XLA; here it
+goes to ``torch.addmm`` (cuBLAS), whose ``alpha`` applies the scale to the
+f32 sum before the one rounding, as the reference's ``(x * (1/size))
+.astype(bf16)`` does; no kernel of this package replaces it.
 """
 
 from __future__ import annotations
@@ -79,13 +74,15 @@ def make_matmul_step(size: int = 4096, depth: int = 8, device=None):
     ``(fn, (a, b))`` with ``a`` and ``b`` normal bf16 from seed 0."""
     dev = resolve_device(device)
     scale = 1.0 / size
+    # addmm's input, ignored at beta=0
+    zeros = torch.zeros((size, size), device=dev, dtype=torch.bfloat16)
 
     def step(a, b):
         x = a
         for _ in range(depth):
-            # bf16 x bf16 with f32 accumulation in cuBLAS; rounding note in
-            # the module docstring
-            x = torch.matmul(x, b) * scale
+            # bf16 x bf16 with f32 accumulation in cuBLAS, scaled in f32
+            # and rounded to bf16 once
+            x = torch.addmm(zeros, x, b, beta=0, alpha=scale)
         return x
 
     gen = torch.Generator(device=dev).manual_seed(0)
