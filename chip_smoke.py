@@ -68,6 +68,21 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    time, then the burn-in's seconds a step, the card's name and power
    limit and ``entry.dryrun_multichip``; this path launches none of
    K1-K7c;
+6. (after 5, before 4) the node agents: the chip table
+   (``native/gpuinfo.py``), which must come from NVML and agree with torch
+   (by PCI bus id where both give one, else by count) and with
+   ``nvidia-smi`` (name, power limit); ``device_probe_path`` on every
+   ``/dev/nvidiaN``; the /dev/char links made into a temporary directory,
+   one ``195:<minor>`` a card; the ``driver`` and ``toolkit`` CLI
+   components (the toolkit on the host's JSON CDI spec, else on one
+   written from the chip table); ``validate_vfio_pci``, which must refuse
+   and name the cards' PCI functions and no NVSwitch; one
+   ``MetricsDaemon(own_chip=True).collect_once()`` (``tensorcore_util`` in
+   (0, 100]) and one GET of its HTTP endpoint; the workload pods' matmul,
+   device-count and gang scripts as subprocesses (the gang from the env
+   ``slice_gang_pod`` builds; a gang of two with two or more cards); one
+   pass of each ``NodeMetrics`` watcher; this path launches none of
+   K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -83,6 +98,7 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import faulthandler
+import glob
 import json
 import os
 import re
@@ -90,6 +106,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 import torch
 
@@ -881,6 +898,294 @@ def phase_multidevice() -> None:
     log(f"dryrun_multichip({n}): {time.perf_counter() - t0:.1f} s")
 
 
+def _smi_cards() -> list:
+    """(name, power limit W) of each card, as ``nvidia-smi`` reads them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return [
+        (name.strip(), float(limit))
+        for name, limit in (line.rsplit(",", 1) for line in smi.stdout.strip().splitlines())
+    ]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_chip_table(gpuinfo) -> list:
+    """The chip table from NVML, each card torch sees found in it by PCI
+    bus id (by UUID where NVML gives no bus id, by count and name where
+    neither names each card once) with NVML's name equal to torch's, and NVML's names and
+    power limits equal to nvidia-smi's; returns the cards' PCI functions as
+    torch gives them."""
+    chips = gpuinfo.chip_summary()
+    log(f"chip table: {json.dumps(chips)}")
+    if not chips or any(c["source"] != "nvml" for c in chips):
+        raise RuntimeError("the chip table did not come from NVML")
+    n = torch.cuda.device_count()
+    props = [torch.cuda.get_device_properties(i) for i in range(n)]
+    torch_bus = [
+        f"{p.pci_domain_id:04x}:{p.pci_bus_id:02x}:{p.pci_device_id:02x}.0"
+        if hasattr(p, "pci_bus_id") else None for p in props
+    ]
+    keys = {
+        "PCI bus id": ("pci_address", torch_bus),
+        "UUID": ("uuid", [f"GPU-{p.uuid}" if hasattr(p, "uuid") else None for p in props]),
+    }
+    for how, (field, torch_keys) in keys.items():
+        table = {c.get(field): c for c in chips}
+        # a key joins only where both sides give it, once a card
+        if all([*torch_keys, *table]) and len(set(torch_keys)) == n and len(table) == len(chips):
+            missing = [k for k in torch_keys if k not in table]
+            if missing:
+                raise RuntimeError(f"cards torch sees are not in the chip table: {missing}")
+            for i, key in enumerate(torch_keys):
+                if table[key]["name"] != torch.cuda.get_device_name(i):
+                    raise RuntimeError(f"card {key}: NVML says {table[key]['name']!r}, "
+                                       f"torch {torch.cuda.get_device_name(i)!r}")
+            log(f"chip table: every card torch sees is in it by {how} {torch_keys}")
+            break
+        log(f"chip table: no join by {how} (torch {torch_keys}, NVML "
+            f"{[c.get(field) for c in chips]})")
+    else:
+        names = sorted(torch.cuda.get_device_name(i) for i in range(n))
+        if len(chips) != n or sorted(c["name"] for c in chips) != names:
+            raise RuntimeError(f"the chip table's {len(chips)} cards are not torch's {n}: {names}")
+        log(f"chip table: joined by count and name ({n} x {names[0]})")
+    if len(chips) != len(gpuinfo.find_gpu_devices()):
+        log(f"chip table: /dev holds {gpuinfo.find_gpu_devices()}, NVML {len(chips)} cards")
+    # nvidia-smi reads NVML too, so its cards are the table's; identical
+    # cards make the sorted (name, limit) pairs a join by bus id
+    smi_sorted = sorted((name, limit * 1000.0) for name, limit in _smi_cards())
+    nvml_sorted = sorted((c["name"], float(c.get("power_limit_mw", -1))) for c in chips)
+    if smi_sorted != nvml_sorted:
+        raise RuntimeError(f"NVML's names and power limits {nvml_sorted} are not nvidia-smi's "
+                           f"{smi_sorted}")
+    log(f"chip table: NVML's names and power limits (mW) equal nvidia-smi's: {nvml_sorted}")
+    return [bus for bus in torch_bus if bus]
+
+
+def check_vfio_refusal(comp, gpuinfo, card_bus, status_dir) -> None:
+    """validate_vfio_pci must refuse the cards (bound to nvidia, not
+    vfio-pci), naming exactly their PCI functions and no NVSwitch; on a
+    machine without a sysfs PCI tree, on a tree written from the cards' bus
+    ids beside an NVSwitch function and a foreign one."""
+    status = comp.StatusFiles(status_dir)
+    real = gpuinfo.SYSFS_PCI
+    if os.path.isdir(real):
+        tree = real
+        log(f"vfio-pci: on the host's {real}")
+    else:
+        try:
+            comp.validate_vfio_pci(status, sysfs=real)
+            raise RuntimeError(f"vfio-pci passed with no tree at {real}")
+        except comp.ValidationError as e:
+            log(f"vfio-pci: the host's {real}: refused: {e}")
+        tree = os.path.join(status_dir, "pci")
+        functions = {bus: ("0x10de", "0x030200", "nvidia") for bus in card_bus}
+        functions["0000:fe:00.0"] = ("0x10de", "0x068000", "nvidia-nvswitch")
+        functions["0000:fe:01.0"] = ("0x8086", "0x030000", "i915")
+        for addr, (vendor, cls, driver) in functions.items():
+            os.makedirs(os.path.join(tree, addr))
+            for fname, value in (("vendor", vendor), ("class", cls)):
+                with open(os.path.join(tree, addr, fname), "w") as f:
+                    f.write(value + "\n")
+            os.symlink(f"../../../bus/pci/drivers/{driver}", os.path.join(tree, addr, "driver"))
+        log(f"vfio-pci: no PCI tree at {real} here; on one written from the cards' bus ids: "
+            f"{sorted(functions)}")
+    try:
+        comp.validate_vfio_pci(status, sysfs=tree)
+        raise RuntimeError("vfio-pci passed although the cards are bound to nvidia")
+    except comp.ValidationError as e:
+        named = sorted(re.findall(r"[0-9a-f]{4}:[0-9a-f]{2}:[0-9a-f]{2}\.[0-7]", str(e)))
+        log(f"vfio-pci refused: {e}")
+    for addr in named:
+        with open(os.path.join(tree, addr, "vendor")) as f, open(os.path.join(tree, addr, "class")) as g:
+            if not gpuinfo.is_card_function(f.read(), g.read()):
+                raise RuntimeError(f"vfio-pci named {addr}, which is not a card")
+    if tree != real and named != sorted(card_bus):
+        raise RuntimeError(f"vfio-pci named {named}, not the cards {sorted(card_bus)}")
+    if not set(card_bus) <= set(named):
+        raise RuntimeError(f"vfio-pci did not name every card: {named} against {card_bus}")
+
+
+def run_gang(wp, hosts: int) -> list:
+    """One SLICE_GANG_SCRIPT process a card, each with the env
+    ``slice_gang_pod`` builds for its ordinal and ``CUDA_VISIBLE_DEVICES``
+    its card; returns each rank's output."""
+    extra = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    procs = []
+    try:
+        for rank in range(hosts):
+            pod = wp.slice_gang_pod("chip-smoke", "node-0", "default", rank, hosts, extra_env=extra)
+            ctr = pod["spec"]["containers"][0]
+            if ctr["command"][-1] != wp.SLICE_GANG_SCRIPT:
+                raise RuntimeError("the gang pod does not run SLICE_GANG_SCRIPT")
+            env = {**os.environ, **{e["name"]: e["value"] for e in ctr["env"]},
+                   "CUDA_VISIBLE_DEVICES": str(rank)}
+            procs.append(subprocess.Popen([sys.executable, "-c", ctr["command"][-1]], env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        outs = []
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=180)
+            if proc.returncode != 0:
+                raise RuntimeError(f"gang of {hosts}, rank {rank}: rc={proc.returncode}\n{err[-2000:]}")
+            outs.append(out.strip())
+        return outs
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_node_agents() -> None:
+    """The node agents on the card (phase 6); raises on any miss."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch.metricsd.daemon import MetricsDaemon
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.operands import devchar
+    from tpu_operator_torch.validator import components as comp
+    from tpu_operator_torch.validator import workload_pods as wp
+    from tpu_operator_torch.validator.metrics import NodeMetrics
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    n = torch.cuda.device_count()
+    card_bus = check_chip_table(gpuinfo)
+    chips = gpuinfo.chip_summary()
+
+    nodes = gpuinfo.find_gpu_devices()
+    alive = {p: gpuinfo.device_probe_path(p) for p in nodes}
+    log(f"device_probe_path: {alive}")
+    if not nodes or not all(alive.values()):
+        raise RuntimeError(f"a card node failed its open probe: {alive}")
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-agents-") as tmp:
+        char_dir = os.path.join(tmp, "char")
+        created = devchar.create_dev_char_symlinks("/dev", char_dir)
+        log(f"devchar: {len(created)} links into {char_dir}: "
+            f"{sorted(os.path.basename(c) for c in created)}")
+        for c in chips:
+            link = os.path.join(char_dir, f"195:{c['index']}")
+            if not os.path.islink(link) or os.readlink(link) != c["path"]:
+                raise RuntimeError(f"no /dev/char link 195:{c['index']} to {c['path']}")
+
+        # the host checks through the CLI; the links were made above, so
+        # the driver component makes none in the host's /dev/char
+        status_dir = os.path.join(tmp, "validations")
+        env = {**os.environ, devchar.DISABLE_ENV: "true"}
+        cdi = None
+        for d in ("/var/run/cdi", "/etc/cdi"):
+            for path in sorted(glob.glob(os.path.join(d, "*.json"))):
+                with open(path) as f:
+                    if json.load(f).get("kind") == "nvidia.com/gpu":
+                        cdi = cdi or path
+        if cdi is None:
+            cdi = os.path.join(tmp, "nvidia.json")
+            with open(cdi, "w") as f:
+                json.dump({"cdiVersion": "0.6.0", "kind": "nvidia.com/gpu", "devices": [
+                    {"name": str(c["index"]),
+                     "containerEdits": {"deviceNodes": [{"path": c["path"]}]}} for c in chips
+                ]}, f)
+            log(f"toolkit: no JSON CDI spec naming nvidia.com/gpu in /var/run/cdi or /etc/cdi; "
+                f"on {cdi}, written from the chip table")
+        else:
+            log(f"toolkit: on the host's CDI spec {cdi}")
+        for component, args, status_file in (
+            ("driver", ["--driver-root", "/"], "driver-ready"),
+            ("toolkit", ["--cdi-spec", cdi], "toolkit-ready"),
+        ):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "tpu_operator_torch.validator", "--component", component,
+                 *args, "--output-dir", status_dir],
+                capture_output=True, text=True, timeout=120, env=env,
+            )
+            wall = time.perf_counter() - t0
+            path = os.path.join(status_dir, status_file)
+            if proc.returncode != 0 or not os.path.exists(path):
+                raise RuntimeError(f"CLI {component} failed rc={proc.returncode}:\n"
+                                   f"{proc.stderr[-3000:]}")
+            with open(path) as f:
+                payload = json.load(f)
+            log(f"cli {component}: rc=0 {wall:.2f} s {status_file}={json.dumps(payload)}")
+            if component == "driver" and (
+                not payload["libcuda"] or not payload["libnvidia_ml"]
+                or [c["index"] for c in payload["chips"]] != [c["index"] for c in chips]
+                or any(c["source"] != "nvml" for c in payload["chips"])
+            ):
+                raise RuntimeError("driver-ready lacks the libraries or NVML's chip table")
+            if component == "toolkit" and not payload["devices"]:
+                raise RuntimeError("toolkit-ready lists no devices")
+
+        check_vfio_refusal(comp, gpuinfo, card_bus, os.path.join(tmp, "vfio"))
+
+        daemon = MetricsDaemon(own_chip=True, drop_file=os.path.join(tmp, "metricsd.json"),
+                               interval_s=3600.0)
+        sample = daemon.collect_once()
+        utils = [c.get("tensorcore_util") for c in sample["chips"]]
+        log(f"metricsd: tensorcore_util {utils} from {daemon.last_sample_tflops} TFLOPS "
+            f"(one 2048^2 bf16 product, host-timed)")
+        if not utils or not all(u is not None and 0 < u <= 100 for u in utils):
+            raise RuntimeError(f"tensorcore_util out of (0, 100]: {utils}")
+        port = _free_port()
+        server = daemon.serve(port=port, block=False)
+        try:
+            deadline = time.time() + 60
+            while daemon.latest().get("ts") == sample["ts"] and time.time() < deadline:
+                time.sleep(0.05)  # the serving loop's own first collection
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=10) as r:
+                got = json.loads(r.read())
+            if got != daemon.latest():
+                raise RuntimeError(f"metricsd GET {got} is not latest() {daemon.latest()}")
+            log(f"metricsd: GET :{port} equals latest(): {json.dumps(got)}")
+        finally:
+            daemon.stop()
+            server.shutdown()
+            server.server_close()
+
+        for name, script in (("matmul", wp.CUDA_MATMUL_SCRIPT), ("plugin", wp.PLUGIN_SMOKE_SCRIPT)):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                                  timeout=180)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the {name} pod script failed:\n{proc.stderr[-2000:]}")
+            log(f"{name} pod script: rc=0 {time.perf_counter() - t0:.2f} s: {proc.stdout.strip()}")
+        for hosts in (1, 2) if n >= 2 else (1,):
+            t0 = time.perf_counter()
+            outs = run_gang(wp, hosts)
+            log(f"gang of {hosts}: rc=0 {time.perf_counter() - t0:.2f} s: {outs}")
+
+        nm = NodeMetrics(status=comp.StatusFiles(status_dir), driver_root="/", dev_root="/dev")
+        passes = {"status": nm.status_pass(), "driver_validation": nm.driver_pass(),
+                  "gpu_capacity": nm.capacity_pass(), "gpu_devices": nm.devices_pass()}
+        log(f"node-status passes: {json.dumps(passes)}")
+        if passes["gpu_devices"] != n or passes["driver_validation"] != 1:
+            raise RuntimeError(f"node-status: gpu_devices {passes['gpu_devices']} (cards {n}), "
+                               f"driver_validation {passes['driver_validation']}")
+        if passes["status"]["ready"] != {"driver-ready": 1, "toolkit-ready": 1,
+                                         "plugin-ready": 0, "cuda-ready": 0}:
+            raise RuntimeError(f"node-status: readiness {passes['status']['ready']}")
+
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the node agents launched kernels of the package: {launched}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    log(f"node agents on: {smi.stdout.strip() or smi.stderr.strip()}; no kernel of the package "
+        f"launched; phase 6 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -917,6 +1222,7 @@ def main() -> int:
         k["launches"] = (attribution if k["name"] in variant_kernels else launches)[k["name"]]
     kernels += phase_structural(partial)
     phase_multidevice()
+    phase_node_agents()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,10 @@ The multi-device path (``entry.dryrun_multichip`` and the validator's
 ``slice``, ``ici``, ``ringattn``, ``pipeline`` and ``moe`` components) runs
 a world of processes over ``torch.distributed`` (``workloads/mesh.py``):
 NCCL, one card a rank, or gloo on the CPU; it launches none of the
-package's kernels.
+package's kernels. The node agents (the validator's host checks and
+workload pods, the node-status exporter in ``validator/metrics.py``, the
+metrics daemon in ``metricsd/``) read the card through ``native/gpuinfo.py``
+(NVML, else the device nodes and sysfs) and launch none either.
 
 The package imports ``torch`` and never ``jax`` or ``tpu_operator``.
 Entry points run on ``cuda`` unless the caller asks for the CPU, where each

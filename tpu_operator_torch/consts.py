@@ -1,12 +1,54 @@
-"""Host paths and status-file names the port's validator writes.
+"""Names, labels and host paths the port's validator and node agents use.
 
 The barrier directory and file-name convention are the same as the JAX
 package's (``tpu_operator/consts.py``); the port keeps its own copy so it
-imports nothing from there.
+imports nothing from there. The API group and the node labels are the
+reference's own (``consts.py:40``, ``:112-114``, ``:229``, ``:253-268``):
+the control plane that writes them is not ported yet, so the node agents
+read the labels it writes. The resource names and the driver's paths are
+the card's (``nvidia.com/gpu``, ``/run/nvidia/driver``).
 """
 
+# --- API group and node labels (reference consts.py) -------------------
+GROUP = "tpu.k8s.io"
+WORKLOAD_CONFIG_LABEL = f"{GROUP}/tpu.workload.config"
+WORKLOAD_CONTAINER = "container"
+WORKLOAD_VM_PASSTHROUGH = "vm-passthrough"
+TFD_LABEL_PREFIX = f"{GROUP}/tpu."
+TFD_SLICE_HOSTS_LABEL = f"{TFD_LABEL_PREFIX}slice-hosts"
+TFD_WORKER_ID_LABEL = f"{TFD_LABEL_PREFIX}worker-id"
+TFD_SLICE_ID_LABEL = f"{TFD_LABEL_PREFIX}slice-id"
+GKE_NODEPOOL_LABEL = "cloud.google.com/gke-nodepool"
+SLICE_READY_LABEL = f"{GROUP}/tpu.slice.ready"
+VALIDATOR_PERF_ANNOTATION = f"{GROUP}/validator-perf"
+# the driver version that tags the validator-perf readings, as GPU feature
+# discovery publishes it (stands in for TFD_LIBTPU_VERSION_LABEL, :256)
+DRIVER_VERSION_LABEL = "nvidia.com/cuda.driver-version.full"
+OPERATOR_NAMESPACE_ENV = "OPERATOR_NAMESPACE"
+
+# --- resource names (stand in for TPU_RESOURCE and
+#     TPU_SUBSLICE_RESOURCE_PREFIX, :46-47) -------------------------------
+GPU_RESOURCE = "nvidia.com/gpu"  # what the device plugin advertises
+MIG_RESOURCE_PREFIX = "nvidia.com/mig-"  # mixed-strategy MIG slices
+
+# the image the workload pods run (stands in for DEFAULT_JAX_WORKLOAD_IMAGE,
+# :35); the CUDA_WORKLOAD_IMAGE environment variable overrides it
+DEFAULT_CUDA_WORKLOAD_IMAGE = "gcr.io/tpu-operator/tpu-operator-cuda-validator:0.2.0"
+
+# --- host paths ----------------------------------------------------------
 # status-file barrier directory
 VALIDATION_DIR = "/run/tpu/validations"
+# the driver container's root on the host (stands in for LIBTPU_HOST_DIR, :294)
+DRIVER_ROOT = "/run/nvidia/driver"
+# the CDI spec the container toolkit generates
+CDI_SPEC_PATH = "/var/run/cdi/nvidia.yaml"
+VM_DEVICE_STATE_FILE = "/run/tpu/vm-devices.json"
+
+# the barrier chain that admits a node (stand in for :274-292)
+STATUS_FILE_DRIVER = "driver-ready"
+STATUS_FILE_TOOLKIT = "toolkit-ready"
+STATUS_FILE_PLUGIN = "plugin-ready"
+STATUS_FILE_DRIVER_CTR = ".driver-ctr-ready"  # the driver container's startupProbe barrier
 STATUS_FILE_CUDA = "cuda-ready"
 STATUS_FILE_MEMBW = "membw-ready"
 STATUS_FILE_FLASHATTN = "flashattn-ready"
@@ -16,8 +58,11 @@ STATUS_FILE_ICI = "ici-ready"
 STATUS_FILE_RINGATTN = "ringattn-ready"
 STATUS_FILE_PIPELINE = "pipeline-ready"
 STATUS_FILE_MOE = "moe-ready"
+STATUS_FILE_VFIO_PCI = "vfio-pci-ready"
+STATUS_FILE_VM_MANAGER = "vm-manager-ready"
+STATUS_FILE_VM_DEVICES = "vm-devices-ready"
 # diagnostic probes (opt-in / on-demand): surfaced by the node-status
-# exporter as tpu_validator_probe_ready{probe=...}
+# exporter as gpu_validator_probe_ready{probe=...}
 PROBE_STATUS_FILES = (
     "slice-ready",
     "slice-workload-ready",

@@ -1,9 +1,15 @@
 """Validator CLI of the port: ``python -m tpu_operator_torch.validator
---component cuda|membw|flashattn|slice|ici|ringattn|pipeline|moe``.
+--component X``, a counterpart of each of the JAX package's
+``tpu-validator`` components (``tpu_operator/validator/main.py:20-37``):
+``driver`` (for ``libtpu``), ``toolkit`` (``runtime``), ``plugin``,
+``cuda`` (``jax``), the probes, the sandbox checks and ``nodestatus``, the
+long-running node-status exporter.
 
-The same flags and environment defaults as the JAX package's
-``tpu-validator`` for these components. Exit 0 when the component passed
-and wrote its status file, 1 when it failed.
+The same flags and environment defaults as the reference, with the card's
+names (``--driver-root``/``DRIVER_ROOT`` for ``--libtpu-install-dir``).
+Exit 0 when the component passed and wrote its status file, 1 when it
+failed. The host checks read files and import no ``torch``; ``--allow-cpu``
+concerns only the compute components.
 """
 
 from __future__ import annotations
@@ -17,7 +23,24 @@ from tpu_operator_torch import consts
 from tpu_operator_torch.validator import components as comp
 from tpu_operator_torch.validator.components import StatusFiles
 
-COMPONENTS = ("cuda", "membw", "flashattn", "slice", "ici", "ringattn", "pipeline", "moe")
+COMPONENTS = (
+    "driver",
+    "toolkit",
+    "plugin",
+    "cuda",
+    "slice",
+    "slice-workload",
+    "ici",
+    "ringattn",
+    "pipeline",
+    "moe",
+    "membw",
+    "flashattn",
+    "vfio-pci",
+    "vm-manager",
+    "vm-devices",
+    "nodestatus",
+)
 
 
 def _env_int(name: str, default: int) -> int:
@@ -56,6 +79,33 @@ def build_parser():
         "--output-dir",
         default=os.environ.get("VALIDATION_OUTPUT_DIR", consts.VALIDATION_DIR),
     )
+    p.add_argument(
+        "--with-wait",
+        action="store_true",
+        default=os.environ.get("WITH_WAIT", "") == "true",
+        help="block on the previous barrier's status file first",
+    )
+    p.add_argument(
+        "--with-workload",
+        action="store_true",
+        default=os.environ.get("WITH_WORKLOAD", "") == "true",
+        help="spawn a workload pod instead of validating in-process",
+    )
+    p.add_argument("--node-name", default=os.environ.get("NODE_NAME", ""))
+    p.add_argument("--namespace", default=os.environ.get(consts.OPERATOR_NAMESPACE_ENV, ""))
+    p.add_argument(
+        "--driver-root",
+        default=os.environ.get("DRIVER_ROOT", consts.DRIVER_ROOT),
+        help="the driver's root on the host (its libraries under usr/lib*, lib*)",
+    )
+    p.add_argument("--cdi-spec", default=os.environ.get("CDI_SPEC_PATH", consts.CDI_SPEC_PATH))
+    p.add_argument("--dev-root", default="/dev")
+    p.add_argument("--sysfs", default="/sys/bus/pci/devices")
+    p.add_argument(
+        "--vm-state-file",
+        default=os.environ.get("VM_DEVICE_STATE_FILE", consts.VM_DEVICE_STATE_FILE),
+    )
+    p.add_argument("--metrics-port", type=int, default=8000)
     p.add_argument("--matmul-size", type=int, default=4096)
     p.add_argument(
         "--ringattn-seq-len",
@@ -97,9 +147,25 @@ def build_parser():
     p.add_argument(
         "--allow-cpu",
         action="store_true",
-        help="dev mode: run on the CPU when no GPU is visible",
+        help="dev mode: run the compute components on the CPU when no GPU is visible",
     )
     return p
+
+
+def make_client():
+    from tpu_operator_torch.kube.incluster import InClusterClient
+
+    return InClusterClient()
+
+
+def _client_or_none(log):
+    """Sandbox components and the exporter go without the API when no
+    in-cluster client can be made (dev runs outside a pod)."""
+    try:
+        return make_client()
+    except Exception:
+        log.warning("no in-cluster client; workload-config gate and capacity gauge disabled")
+        return None
 
 
 def main(argv=None) -> int:
@@ -111,10 +177,74 @@ def main(argv=None) -> int:
     status = StatusFiles(args.output_dir)
     expect_gpu = not args.allow_cpu
     try:
-        if args.component == "cuda":
-            info = comp.validate_cuda(
-                status, expect_gpu=expect_gpu, size=args.matmul_size
+        if args.component == "driver":
+            info = comp.validate_driver(
+                status,
+                driver_root=args.driver_root,
+                dev_root=args.dev_root,
+                with_wait=args.with_wait,
             )
+        elif args.component == "toolkit":
+            info = comp.validate_toolkit(
+                status, cdi_spec_path=args.cdi_spec, with_wait=args.with_wait
+            )
+        elif args.component == "plugin":
+            info = comp.validate_plugin(
+                status,
+                make_client(),
+                args.node_name,
+                with_wait=args.with_wait,
+                with_workload=args.with_workload,
+                namespace=args.namespace,
+            )
+        elif args.component == "cuda":
+            info = comp.validate_cuda(
+                status,
+                expect_gpu=expect_gpu,
+                size=args.matmul_size,
+                client=make_client() if args.with_workload else None,
+                node_name=args.node_name,
+                namespace=args.namespace,
+                with_workload=args.with_workload,
+            )
+        elif args.component == "slice-workload":
+            info = comp.validate_slice_workload(
+                status, make_client(), args.node_name, namespace=args.namespace
+            )
+        elif args.component == "vfio-pci":
+            info = comp.validate_vfio_pci(
+                status,
+                sysfs=args.sysfs,
+                client=_client_or_none(log),
+                node_name=args.node_name,
+            )
+        elif args.component == "vm-manager":
+            info = comp.validate_vm_manager(
+                status,
+                client=_client_or_none(log),
+                node_name=args.node_name,
+                dev_root=args.dev_root,
+            )
+        elif args.component == "vm-devices":
+            info = comp.validate_vm_devices(
+                status,
+                client=_client_or_none(log),
+                node_name=args.node_name,
+                dev_root=args.dev_root,
+                state_file=args.vm_state_file,
+            )
+        elif args.component == "nodestatus":
+            from tpu_operator_torch.validator.metrics import NodeMetrics
+
+            NodeMetrics(
+                client=_client_or_none(log),
+                node_name=args.node_name,
+                status=status,
+                port=args.metrics_port,
+                driver_root=args.driver_root,
+                dev_root=args.dev_root,
+            ).run()
+            return 0
         elif args.component == "flashattn":
             info = comp.validate_flashattn(
                 status,
