@@ -83,6 +83,23 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    ``slice_gang_pod`` builds; a gang of two with two or more cards); one
    pass of each ``NodeMetrics`` watcher; this path launches none of
    K1-K7c;
+7. (after 6, before 4) the card advertised to the kubelet, on every card:
+   ``runtime_wire.wire_once`` writes the CDI spec from NVML's chip table
+   and the ``toolkit`` CLI component passes on it; the device plugin
+   (over gRPC on a unix socket where grpc and protobuf import, else
+   through the servicer's plain-data methods, which the log says) first
+   advertises exactly the chip table's ids, all ``Healthy``, streams a
+   card's ``mark_unhealthy`` and ``mark_healthy``, answers
+   ``GetPreferredAllocation`` with offered ids only (1 card, and with two
+   or more cards 2 with one must-include), and ``Allocate`` with CDI
+   names of the spec's devices and an env naming the cards by UUID; a
+   process with that env sees exactly the allocated cards' UUIDs (one
+   allocation, two with two or more cards); the ``plugin`` component
+   passes on the advertised capacity (``plugin-ready`` 1 in the
+   node-status readiness); feature discovery's product, count, memory and
+   driver-version labels equal ``nvidia-smi``'s; the plugin's
+   first-advertisement time, each ``Allocate`` round trip and the phase's
+   wall time are logged; this path launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -206,6 +223,15 @@ BF16_ULP = 2.0**-7  # bf16 keeps 8 significant bits: one ulp is at most 2^-7 of 
 # the matmul step against the host's product: a sum in another order lands
 # on the other side of a bf16 rounding boundary at a few elements; rounding
 # the sum before the scale as well moves most of them (70% on the CPU)
+# phase 7: the device plugin's watchdog, and what a container with
+# Allocate's env sees (a product on each card, then the cards' UUIDs)
+PLUGIN_TIMEOUT_S = 120
+CONTAINER_VIEW_SCRIPT = (
+    "import json, torch; n = torch.cuda.device_count(); "
+    "[torch.mm(torch.ones(64, 64, device=i), torch.ones(64, 64, device=i)).sum().item() "
+    "for i in range(n)]; "
+    "print(json.dumps([n, ['GPU-' + str(torch.cuda.get_device_properties(i).uuid) for i in range(n)]]))"
+)
 MATMUL_CHECK_SIZE = 1000
 MATMUL_MISS_SHARE = 0.01
 CLI_CHAIN = [
@@ -1052,6 +1078,7 @@ def phase_node_agents() -> None:
     from tpu_operator_torch.metricsd.daemon import MetricsDaemon
     from tpu_operator_torch.native import gpuinfo
     from tpu_operator_torch.operands import devchar
+    from tpu_operator_torch.plugin.cdi import write_spec
     from tpu_operator_torch.validator import components as comp
     from tpu_operator_torch.validator import workload_pods as wp
     from tpu_operator_torch.validator.metrics import NodeMetrics
@@ -1090,13 +1117,9 @@ def phase_node_agents() -> None:
                         cdi = cdi or path
         if cdi is None:
             cdi = os.path.join(tmp, "nvidia.json")
-            with open(cdi, "w") as f:
-                json.dump({"cdiVersion": "0.6.0", "kind": "nvidia.com/gpu", "devices": [
-                    {"name": str(c["index"]),
-                     "containerEdits": {"deviceNodes": [{"path": c["path"]}]}} for c in chips
-                ]}, f)
+            write_spec(cdi, driver_root="/", chips=chips)
             log(f"toolkit: no JSON CDI spec naming nvidia.com/gpu in /var/run/cdi or /etc/cdi; "
-                f"on {cdi}, written from the chip table")
+                f"on {cdi}, written from the chip table by cdi.write_spec")
         else:
             log(f"toolkit: on the host's CDI spec {cdi}")
         for component, args, status_file in (
@@ -1186,6 +1209,245 @@ def phase_node_agents() -> None:
         f"launched; phase 6 {time.perf_counter() - t_phase:.1f} s")
 
 
+class _PluginDriver:
+    """The device plugin as the kubelet drives it: over gRPC through a stub
+    on its unix socket where grpc and protobuf import, else through the
+    servicer's plain-data methods (``watch``, ``preferred``,
+    ``allocate_container``), with no server."""
+
+    def __init__(self, plugin, servicer, socket_dir: str, transport: str):
+        self.servicer, self.transport = servicer, transport
+        self.server = self.channel = self.stream = None
+        if transport == "grpc":
+            import grpc
+
+            from tpu_operator_torch.plugin import grpc_glue
+            from tpu_operator_torch.plugin.proto import deviceplugin_pb2 as pb2
+
+            self.pb2 = pb2
+            self.server = plugin.DevicePluginServer(servicer, socket_dir=socket_dir)
+            if len(self.server.socket_path) > 107:
+                raise RuntimeError(f"socket path longer than 107 bytes: {self.server.socket_path}")
+            self.channel = grpc.insecure_channel(self.server.start())
+            self.stub = grpc_glue.DevicePluginStub(self.channel)
+            self.stream = self.stub.ListAndWatch(pb2.Empty(), timeout=PLUGIN_TIMEOUT_S)
+        else:
+            self.stream = servicer.watch()
+
+    def next_list(self) -> dict:
+        """The stream's next message as {id: health}."""
+        msg = next(self.stream)
+        if self.transport == "grpc":
+            return {d.ID: d.health for d in msg.devices}
+        return {d["ID"]: d["health"] for d in msg}
+
+    def prefer(self, available, must, size) -> list:
+        if self.transport != "grpc":
+            return self.servicer.preferred(available, must, size)
+        req = self.pb2.GetPreferredAllocationRequest()
+        creq = req.container_requests.add()
+        creq.available_deviceIDs.extend(available)
+        creq.must_include_deviceIDs.extend(must)
+        creq.allocation_size = size
+        resp = self.stub.GetPreferredAllocation(req, timeout=PLUGIN_TIMEOUT_S)
+        return list(resp.container_responses[0].deviceIDs)
+
+    def allocate(self, ids) -> tuple:
+        """(CDI device names, env) of one container's Allocate."""
+        if self.transport != "grpc":
+            content = self.servicer.allocate_container(ids)
+            return content["cdi_devices"], content["envs"]
+        req = self.pb2.AllocateRequest()
+        req.container_requests.add().devicesIDs.extend(ids)
+        cresp = self.stub.Allocate(req, timeout=PLUGIN_TIMEOUT_S).container_responses[0]
+        return [c.name for c in cresp.cdi_devices], dict(cresp.envs)
+
+    def close(self) -> None:
+        """Cancel the stream, stop the server and join the poller."""
+        if self.transport == "grpc":
+            self.stream.cancel()
+            self.channel.close()
+            self.server.stop()
+        else:
+            self.stream.close()
+            self.servicer.stop()
+        poller = self.servicer._poller
+        if poller is not None and poller.is_alive():
+            raise RuntimeError("the plugin's poller outlived stop()")
+
+
+class _NodeClient:
+    """The one node the kubelet's device manager writes, for the plugin
+    component's ``client.get``."""
+
+    def __init__(self, node: dict):
+        self.node = node
+
+    def get(self, api_version, kind, name, namespace="", copy=False):
+        if (kind, name) != ("Node", self.node["metadata"]["name"]):
+            raise KeyError(f"{kind}/{name}")
+        return json.loads(json.dumps(self.node))
+
+
+def phase_device_stack() -> None:
+    """The card advertised (phase 7); raises on any miss."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.operands import runtime_wire
+    from tpu_operator_torch.plugin import server as plugin
+    from tpu_operator_torch.validator import components as comp
+    from tpu_operator_torch.validator.metrics import NodeMetrics
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    n = torch.cuda.device_count()
+    chips = gpuinfo.chip_summary()
+    ids = [str(c["index"]) for c in chips]
+    uuid = {str(c["index"]): c.get("uuid") for c in chips}
+    if len(chips) != n or any(c["source"] != "nvml" or not c.get("uuid") for c in chips):
+        raise RuntimeError(f"the chip table does not name torch's {n} cards by UUID: {chips}")
+    try:
+        import grpc  # noqa: F401
+
+        from tpu_operator_torch.plugin.proto import deviceplugin_pb2  # noqa: F401
+
+        transport = "grpc"
+        log(f"device stack: grpc {grpc.__version__} and protobuf import; the plugin is served "
+            f"over gRPC on a unix socket")
+    except ImportError as e:
+        transport = "plain"
+        log(f"device stack: grpc or protobuf does not import here ({e}); the plugin is held "
+            f"through its plain-data methods, with no gRPC server")
+
+    with tempfile.TemporaryDirectory(prefix="cs7-") as tmp:
+        # 1. the CDI spec from the chip table, and the toolkit component on it
+        spec_path = os.path.join(tmp, "nvidia.json")
+        spec = runtime_wire.wire_once(spec_path, dev_root="/dev", driver_root="/", chips=chips)
+        spec_names = {d["name"] for d in spec["devices"]}
+        status_dir = os.path.join(tmp, "validations")
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_operator_torch.validator", "--component", "toolkit",
+             "--cdi-spec", spec_path, "--output-dir", status_dir],
+            capture_output=True, text=True, timeout=120,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"CLI toolkit failed on the runtime wire's spec:\n{proc.stderr[-3000:]}")
+        with open(os.path.join(status_dir, consts.STATUS_FILE_TOOLKIT)) as f:
+            payload = json.load(f)
+        if payload["devices"] != ids + ["all"]:
+            raise RuntimeError(f"toolkit-ready lists {payload['devices']}, not the cards {ids} and all")
+        log(f"runtime wire: CDI spec {spec_path} with devices {payload['devices']}, "
+            f"{len(spec['containerEdits']['mounts'])} driver libraries, control nodes "
+            f"{[d['path'] for d in spec['containerEdits']['deviceNodes']]}; cli toolkit rc=0")
+
+        # 2. the device plugin, all of it under a watchdog: a stream left
+        # open would hang the phase
+        faulthandler.dump_traceback_later(PLUGIN_TIMEOUT_S, exit=True)
+        try:
+            t0 = time.perf_counter()
+            servicer = plugin.GPUDevicePluginServicer(
+                dev_root="/dev", driver_root="/", poll_interval_s=0.2, health_probe_interval_s=3600
+            )
+            drv = _PluginDriver(plugin, servicer, os.path.join(tmp, "k"), transport)
+            try:
+                first = drv.next_list()
+                first_s = time.perf_counter() - t0
+                if sorted(first, key=int) != ids or set(first.values()) != {"Healthy"}:
+                    raise RuntimeError(f"first advertisement {first}, not the chip table's {ids} Healthy")
+                servicer.mark_unhealthy(ids[0])
+                flipped = drv.next_list()
+                if flipped[ids[0]] != "Unhealthy" or sum(h == "Healthy" for h in flipped.values()) != n - 1:
+                    raise RuntimeError(f"mark_unhealthy({ids[0]}) streamed {flipped}")
+                servicer.mark_healthy(ids[0])
+                advert = drv.next_list()
+                if set(advert.values()) != {"Healthy"}:
+                    raise RuntimeError(f"mark_healthy({ids[0]}) streamed {advert}")
+                log(f"plugin ({transport}): first advertisement {first} after {first_s * 1e3:.1f} ms; "
+                    f"card {ids[0]} Unhealthy and back")
+
+                requests = [(ids, [], 1)]
+                if n >= 2:
+                    requests.append((ids, [ids[-1]], 2))
+                allocations = []
+                for available, must, size in requests:
+                    got = drv.prefer(available, must, size)
+                    if len(got) != size or len(set(got)) != size or not set(must) <= set(got) <= set(ids):
+                        raise RuntimeError(
+                            f"GetPreferredAllocation({available}, must {must}, {size}) = {got}")
+                    t1 = time.perf_counter()
+                    names, envs = drv.allocate(got)
+                    alloc_ms = (time.perf_counter() - t1) * 1e3
+                    want_names = [f"{consts.CDI_KIND}={i}" for i in got]
+                    if names != want_names or any(x.split("=", 1)[1] not in spec_names for x in names):
+                        raise RuntimeError(
+                            f"Allocate({got}) named {names}; the spec has {sorted(spec_names)}")
+                    visible = ",".join(uuid[i] for i in sorted(got, key=int))
+                    if (envs.get("NVIDIA_VISIBLE_DEVICES"), envs.get("CUDA_VISIBLE_DEVICES")) != (visible,) * 2:
+                        raise RuntimeError(f"Allocate({got}) env {envs} does not name {visible}")
+                    log(f"plugin: preferred {got} (must {must}); Allocate round trip {alloc_ms:.2f} ms, "
+                        f"CDI {names}")
+                    allocations.append((got, envs))
+            finally:
+                drv.close()
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+
+        # 3. a container with Allocate's env sees exactly its cards
+        for got, envs in allocations:
+            t1 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", CONTAINER_VIEW_SCRIPT],
+                                  env={**os.environ, **envs}, capture_output=True, text=True, timeout=180)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the container view of {got} failed:\n{proc.stderr[-2000:]}")
+            count, seen = json.loads(proc.stdout.strip().splitlines()[-1])
+            if count != len(got) or sorted(seen) != sorted(uuid[i] for i in got):
+                raise RuntimeError(f"allocated {got} ({[uuid[i] for i in got]}); the process saw "
+                                   f"{count} cards {seen}")
+            log(f"container view of {got}: {count} card(s), {seen}, {time.perf_counter() - t1:.2f} s")
+
+        # 4. the plugin component on the capacity the advertisement gives
+        node = {"metadata": {"name": "chip-smoke-node", "labels": {}}, "status": {
+            "capacity": {consts.GPU_RESOURCE: str(len(advert))},
+            "allocatable": {consts.GPU_RESOURCE: str(sum(h == "Healthy" for h in advert.values()))},
+        }}
+        status = comp.StatusFiles(status_dir)
+        info = comp.validate_plugin(status, _NodeClient(node), "chip-smoke-node", retries=1, sleep_s=0)
+        ready = NodeMetrics(status=status, driver_root="/", dev_root="/dev").status_pass()["ready"]
+        if (info["capacity"], info["allocatable"]) != (n, n) or ready["plugin-ready"] != 1:
+            raise RuntimeError(f"plugin component: {info}, readiness {ready}")
+        log(f"plugin component: {json.dumps(info)}; node-status readiness {json.dumps(ready)}")
+
+    # 5. feature discovery against nvidia-smi
+    feats = tfd.gather_features({"metadata": {"name": "chip-smoke-node", "labels": {}}},
+                                dev_root="/dev", driver_root="/", env={})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,memory.total,driver_version", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    rows = [[x.strip() for x in line.split(",")] for line in smi.stdout.strip().splitlines()]
+    want = {
+        consts.GPU_PRODUCT_LABEL: rows[0][0].replace(" ", "-"),
+        consts.GPU_COUNT_LABEL: str(n),
+        consts.GPU_MEMORY_LABEL: rows[0][1],
+        consts.DRIVER_VERSION_LABEL: rows[0][2],
+    }
+    got = {k: feats.get(k) for k in want}
+    if got != want or len(rows) != n:
+        raise RuntimeError(f"feature discovery {got} against nvidia-smi {want} ({len(rows)} rows)")
+    log(f"feature discovery: {json.dumps(feats)}; the four labels equal nvidia-smi's")
+
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the device stack launched kernels of the package: {launched}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"device stack on: {smi.stdout.strip() or smi.stderr.strip()}; transport {transport}; "
+        f"first advertisement {first_s * 1e3:.1f} ms; no kernel of the package launched; "
+        f"phase 7 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -1223,6 +1485,7 @@ def main() -> int:
     kernels += phase_structural(partial)
     phase_multidevice()
     phase_node_agents()
+    phase_device_stack()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

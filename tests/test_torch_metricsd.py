@@ -159,3 +159,55 @@ def test_module_runs_as_a_program():
     proc = subprocess.run([sys.executable, "-m", "tpu_operator_torch.metricsd", "--help"],
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0 and "--sampler-only" in proc.stdout
+
+
+def test_failed_sample_publishes_presence_and_keeps_the_sampler(tmp_path, dev_roots, monkeypatch):
+    """A product that fails (a job holding the card's memory) leaves each
+    card's presence published without ``tensorcore_util``, in both
+    daemons' drop files alike, and the card-owning sampler keeps running."""
+    import threading
+
+    import jax
+
+    oom = RuntimeError("CUDA error: out of memory")
+
+    def fail(*_):
+        raise oom
+
+    monkeypatch.setattr(jax, "devices", fail)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
+    calls = []
+    tried = threading.Event()
+
+    def failing_product(n=daemon.SAMPLE_SIZE):
+        calls.append(n)
+        tried.set()
+        raise oom
+
+    monkeypatch.setattr(daemon, "timed_product_s", failing_product)
+    drops = []
+    for mod, root, name in ((ref, dev_roots[0], "ref"), (daemon, dev_roots[1], "port")):
+        drop = tmp_path / name / "metricsd.json"
+        mod.MetricsDaemon(dev_root=root, drop_file=str(drop), own_chip=True).collect_once()
+        drops.append(json.loads(drop.read_text()))
+    assert calls, "the port's sample was not tried"
+    assert _strip(drops[1]) == _strip(drops[0])
+    assert drops[1]["chips"] == [{"index": i, "present": 1} for i in (0, 1, 4)]
+
+    monkeypatch.setattr("tpu_operator_torch.device.resolve_device", lambda d=None: d)
+    d = daemon.MetricsDaemon(dev_root=dev_roots[1], interval_s=0.01)
+    side = tmp_path / "side.json"
+    tried.clear()
+    t = threading.Thread(target=d.run_sampler, args=(str(side),), daemon=True)
+    t.start()
+    try:
+        assert tried.wait(10), "the sampler never sampled"
+        tried.clear()
+        assert tried.wait(10), "the sampler did not sample again after a failure"
+        assert t.is_alive()
+        assert not side.exists()
+    finally:
+        d.stop()
+        t.join(10)
+    assert not t.is_alive()

@@ -14,7 +14,12 @@ NCCL, one card a rank, or gloo on the CPU; it launches none of the
 package's kernels. The node agents (the validator's host checks and
 workload pods, the node-status exporter in ``validator/metrics.py``, the
 metrics daemon in ``metricsd/``) read the card through ``native/gpuinfo.py``
-(NVML, else the device nodes and sysfs) and launch none either.
+(NVML, else the device nodes and sysfs) and launch none either, nor do the
+agents that advertise the cards to the kubelet: the CDI spec and its
+runtime wire (``plugin/cdi.py``, ``operands/runtime_wire.py``), the device
+plugin (``plugin/``, over the kubelet's gRPC API) and feature discovery
+(``discovery/``), placed by ``workloads/topology.py``. grpc, protobuf and
+PyYAML are imported only inside the functions that need them.
 
 The package imports ``torch`` and never ``jax`` or ``tpu_operator``.
 Entry points run on ``cuda`` unless the caller asks for the CPU, where each

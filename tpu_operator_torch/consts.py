@@ -15,6 +15,7 @@ WORKLOAD_CONFIG_LABEL = f"{GROUP}/tpu.workload.config"
 WORKLOAD_CONTAINER = "container"
 WORKLOAD_VM_PASSTHROUGH = "vm-passthrough"
 TFD_LABEL_PREFIX = f"{GROUP}/tpu."
+TFD_TOPOLOGY_LABEL = f"{TFD_LABEL_PREFIX}topology"  # the NVLink-domain string
 TFD_SLICE_HOSTS_LABEL = f"{TFD_LABEL_PREFIX}slice-hosts"
 TFD_WORKER_ID_LABEL = f"{TFD_LABEL_PREFIX}worker-id"
 TFD_SLICE_ID_LABEL = f"{TFD_LABEL_PREFIX}slice-id"
@@ -24,12 +25,19 @@ VALIDATOR_PERF_ANNOTATION = f"{GROUP}/validator-perf"
 # the driver version that tags the validator-perf readings, as GPU feature
 # discovery publishes it (stands in for TFD_LIBTPU_VERSION_LABEL, :256)
 DRIVER_VERSION_LABEL = "nvidia.com/cuda.driver-version.full"
+# the labels GPU feature discovery publishes beside it (stand in for
+# TFD_CHIP_TYPE_LABEL, TFD_CHIP_COUNT_LABEL and TFD_HBM_GB_LABEL, :249-251)
+GPU_PRODUCT_LABEL = "nvidia.com/gpu.product"
+GPU_COUNT_LABEL = "nvidia.com/gpu.count"
+GPU_MEMORY_LABEL = "nvidia.com/gpu.memory"  # MiB
 OPERATOR_NAMESPACE_ENV = "OPERATOR_NAMESPACE"
 
 # --- resource names (stand in for TPU_RESOURCE and
 #     TPU_SUBSLICE_RESOURCE_PREFIX, :46-47) -------------------------------
 GPU_RESOURCE = "nvidia.com/gpu"  # what the device plugin advertises
 MIG_RESOURCE_PREFIX = "nvidia.com/mig-"  # mixed-strategy MIG slices
+GPU_VM_RESOURCE = "nvidia.com/gpu-vm"  # the sandbox plugin's vfio groups
+CDI_KIND = GPU_RESOURCE  # the CDI spec's kind: devices are nvidia.com/gpu=<id>
 
 # the image the workload pods run (stands in for DEFAULT_JAX_WORKLOAD_IMAGE,
 # :35); the CUDA_WORKLOAD_IMAGE environment variable overrides it
@@ -40,13 +48,21 @@ DEFAULT_CUDA_WORKLOAD_IMAGE = "gcr.io/tpu-operator/tpu-operator-cuda-validator:0
 VALIDATION_DIR = "/run/tpu/validations"
 # the driver container's root on the host (stands in for LIBTPU_HOST_DIR, :294)
 DRIVER_ROOT = "/run/nvidia/driver"
-# the CDI spec the container toolkit generates
+# the CDI spec the container toolkit (operands/runtime_wire.py) writes and
+# the toolkit component reads
 CDI_SPEC_PATH = "/var/run/cdi/nvidia.yaml"
+# the slice manager's partition state (the reference's, cdi.py:24)
+PARTITION_FILE = "/run/tpu/partitions.json"
+# the kubelet's device-plugin directory and the plugin's socket in it
+KUBELET_SOCKET_DIR = "/var/lib/kubelet/device-plugins"
+PLUGIN_SOCKET_NAME = "nvidia-gpu.sock"
+# GPU feature discovery's NFD feature file
+NFD_FEATURE_FILE = "/etc/kubernetes/node-feature-discovery/features.d/gpu"
 VM_DEVICE_STATE_FILE = "/run/tpu/vm-devices.json"
 
 # the barrier chain that admits a node (stand in for :274-292)
 STATUS_FILE_DRIVER = "driver-ready"
-STATUS_FILE_TOOLKIT = "toolkit-ready"
+STATUS_FILE_TOOLKIT = "toolkit-ready"  # the reference's runtime-ready (:275)
 STATUS_FILE_PLUGIN = "plugin-ready"
 STATUS_FILE_DRIVER_CTR = ".driver-ctr-ready"  # the driver container's startupProbe barrier
 STATUS_FILE_CUDA = "cuda-ready"

@@ -1,14 +1,17 @@
-"""A node's workload config, as the sandbox components read it.
+"""A node's workload config and card variant, as the node agents read them.
 
-The port's copy of ``node_workload_config``
-(``tpu_operator/controllers/state_manager.py:202``).
+The port's copies of ``node_workload_config`` and ``node_generation``
+(``tpu_operator/controllers/state_manager.py:190-202``).
 """
 
 from __future__ import annotations
 
 import logging
 
+from typing import Optional
+
 from tpu_operator_torch import consts
+from tpu_operator_torch.workloads.topology import device_generation
 
 log = logging.getLogger("tpu-validator")
 
@@ -27,3 +30,12 @@ def node_workload_config(node: dict) -> str:
         )
         cfg = consts.WORKLOAD_CONTAINER
     return cfg
+
+
+def node_generation(node: dict) -> Optional[str]:
+    """The H100 variant tag of the node's cards, from the product label
+    feature discovery publishes (NVML's name with spaces as ``-``); None
+    without the label or for another card. The reference reads the GKE
+    accelerator label."""
+    labels = node.get("metadata", {}).get("labels", {}) or {}
+    return device_generation(labels.get(consts.GPU_PRODUCT_LABEL, "").replace("-", " "))

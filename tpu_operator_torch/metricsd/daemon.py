@@ -73,6 +73,7 @@ class MetricsDaemon:
         self.interval_s = interval_s
         self.sample_file = sample_file
         self.last_sample_tflops: Optional[float] = None
+        self._sample_failed = False  # logged once
         self._stop = threading.Event()
         self._latest: dict = {"source": "gpu-metricsd", "chips": []}
         self._lock = threading.Lock()
@@ -105,21 +106,30 @@ class MetricsDaemon:
         ``SAMPLE_SIZE``² bf16 product against the card's bf16 peak
         (``workloads/topology.py``), in percent, capped at 100. None off
         the card, and for a card with no peak entry (its name is logged:
-        no guess). The product takes ~25 µs at 700 TFLOPS, so the host's
-        launch and sync dominate the reading."""
+        no guess), and when the product fails (a job holding the card's
+        memory): the failure is logged once and no reading is claimed, as
+        the reference's guard does (``daemon.py:101-125``). The product
+        takes ~25 µs at 700 TFLOPS, so the host's launch and sync dominate
+        the reading."""
         import torch
 
         if not torch.cuda.is_available():
             return None
-        from tpu_operator_torch.workloads.matmul import device_generation
-        from tpu_operator_torch.workloads.topology import PEAK_BF16_TFLOPS
+        from tpu_operator_torch.workloads.topology import PEAK_BF16_TFLOPS, device_generation
 
         name = torch.cuda.get_device_name(0)
         gen = device_generation(name)
         if gen is None:
             log.warning("no bf16 peak for %r: duty cycle not sampled", name)
             return None
-        tflops = 2.0 * SAMPLE_SIZE**3 / timed_product_s() / 1e12
+        try:
+            seconds = timed_product_s()
+        except Exception:
+            if not self._sample_failed:
+                log.exception("duty-cycle sample failed; publishing presence only")
+            self._sample_failed = True
+            return None
+        tflops = 2.0 * SAMPLE_SIZE**3 / seconds / 1e12
         self.last_sample_tflops = tflops
         return {"tensorcore_util": round(min(100.0, tflops / (PEAK_BF16_TFLOPS[gen] / 100)), 2)}
 

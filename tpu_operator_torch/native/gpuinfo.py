@@ -39,6 +39,7 @@ NVML_SUCCESS = 0
 NVML_NAMES = ("libnvidia-ml.so.1",)
 _NAME_LEN = 96
 _UUID_LEN = 96
+_VERSION_LEN = 80  # NVML_SYSTEM_DRIVER_VERSION_BUFFER_SIZE
 
 
 class _PciInfo(ctypes.Structure):  # nvmlPciInfo_t
@@ -72,6 +73,7 @@ NVML_SIGNATURES = {
     "nvmlInit_v2": ([], ctypes.c_int),
     "nvmlShutdown": ([], ctypes.c_int),
     "nvmlErrorString": ([ctypes.c_int], ctypes.c_char_p),
+    "nvmlSystemGetDriverVersion": ([ctypes.c_char_p, ctypes.c_uint], ctypes.c_int),
     "nvmlDeviceGetCount_v2": ([_UINT_P], ctypes.c_int),
     "nvmlDeviceGetHandleByIndex_v2": ([ctypes.c_uint, ctypes.POINTER(_HANDLE)], ctypes.c_int),
     "nvmlDeviceGetName": ([_HANDLE, ctypes.c_char_p, ctypes.c_uint], ctypes.c_int),
@@ -221,6 +223,27 @@ def chip_summary(
         if cards is not None:
             return cards
     return _sysfs_chips(dev_root, proc_root, sysfs)
+
+
+def driver_version() -> Optional[str]:
+    """The kernel driver's version as NVML reports it (``550.54.15``); None
+    where NVML is missing or does not answer."""
+    lib = _load()
+    if lib is None:
+        return None
+    rc = lib.nvmlInit_v2()
+    if rc != NVML_SUCCESS:
+        log.warning("nvmlInit_v2 failed: %s", _nvml_error(lib, rc))
+        return None
+    try:
+        buf = ctypes.create_string_buffer(_VERSION_LEN)
+        rc = lib.nvmlSystemGetDriverVersion(buf, _VERSION_LEN)
+        if rc != NVML_SUCCESS:
+            log.warning("nvmlSystemGetDriverVersion failed: %s", _nvml_error(lib, rc))
+            return None
+        return buf.value.decode()
+    finally:
+        lib.nvmlShutdown()
 
 
 def chip_count(dev_root: str = "/dev") -> int:

@@ -1,2 +1,2 @@
-"""The operands' helpers that the port's node agents call: the /dev/char
-links and the VFIO group scan."""
+"""The operands the port's node agents run or call: the /dev/char links,
+the VFIO group scan and the runtime wire that keeps the CDI spec fresh."""

@@ -19,7 +19,7 @@ import torch
 
 from tpu_operator_torch.device import device_kind, resolve_device
 from tpu_operator_torch.workloads.timing import chain_per_iter_seconds
-from tpu_operator_torch.workloads.topology import PEAK_BF16_TFLOPS
+from tpu_operator_torch.workloads.topology import PEAK_BF16_TFLOPS, device_generation
 
 
 @dataclass
@@ -52,20 +52,6 @@ class MatmulResult:
             else None,
             "error": self.error,
         }
-
-
-def device_generation(device_kind: str) -> Optional[str]:
-    """Map ``torch.cuda.get_device_name()`` to an H100 variant tag."""
-    kind = device_kind.lower()
-    if "h100" not in kind:
-        return None
-    if "nvl" in kind:
-        return "h100-nvl"
-    if "pcie" in kind:
-        return "h100-pcie"
-    if "sxm" in kind or "hbm3" in kind:
-        return "h100-sxm"
-    return None
 
 
 def make_matmul_step(size: int = 4096, depth: int = 8, device=None):
