@@ -100,6 +100,27 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    driver-version labels equal ``nvidia-smi``'s; the plugin's
    first-advertisement time, each ``Allocate`` round trip and the phase's
    wall time are logged; this path launches none of K1-K7c;
+8. (after 7, before 4) the node's partition and telemetry operands, on
+   every card, in a temporary directory: the slice manager on a node that
+   feature discovery labelled from NVML's chip table (an in-script store
+   with ``resourceVersion`` and a 409 on a stale write), one slice a card
+   and, with two or more cards, 1x2: each reconcile ``success``, the
+   subslices cover exactly the chip table's minors inside one NVLink
+   domain each, the CDI composites hold exactly their cards' nodes and
+   ``PluginManager(strategy="mixed")`` advertises one
+   ``nvidia.com/mig-<shape>`` device a subslice, while a shape that does
+   not tile the host ends ``failed``; the exporter over NVML idle and
+   under ~1 s of ``torch.mm`` (every series' source printed; presence 1,
+   duty cycle in [0, 100], memory in use at most NVML's total, memory in
+   all the variant's), through the metrics daemon's sampler
+   (``tensorcore_util`` as ``sampler``) and, where prometheus_client
+   imports, ``/metrics``; the driver installer from the machine's own
+   libraries into a temporary driver root (the ``driver`` component
+   passes on it, ``VERSION`` is NVML's version, after ``uninstall`` the
+   component fails); the driver manager on the store (the pod that
+   requests a card evicted, the five barriers cleared); the vfio manager
+   and the vm, vm-device and kata managers on fixture trees only, and the
+   cards' MIG mode printed; this path launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -1448,6 +1469,446 @@ def phase_device_stack() -> None:
         f"phase 7 {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 8: the node's operands
+OPERANDS_NODE = "chip-smoke-node"
+BUSY_S = 1.0  # the torch.mm load the busy exporter pass reads
+EXPORTED_NAMES = ("gpu_duty_cycle_percent", "gpu_memory_used_bytes", "gpu_memory_total_bytes",
+                  "gpu_tensorcore_utilization_percent", "gpu_temperature_celsius", "gpu_present",
+                  "gpu_nvlink_pairs_total")
+
+
+class _Store:
+    """The objects phase 8's operands read and write: Nodes and Pods by
+    name; a write bumps ``resourceVersion`` and a write from a stale read
+    answers 409, as the API server does; ``evict`` deletes a Pod."""
+
+    def __init__(self, objs):
+        self.objs, self.rv = {}, 0
+        for obj in objs:
+            self.create(obj)
+
+    @staticmethod
+    def _key(kind, name, namespace=""):
+        return kind, namespace or "", name
+
+    def create(self, obj):
+        obj = json.loads(json.dumps(obj))
+        self.rv += 1
+        obj["metadata"]["resourceVersion"] = str(self.rv)
+        meta = obj["metadata"]
+        self.objs[self._key(obj["kind"], meta["name"], meta.get("namespace", ""))] = obj
+        return json.loads(json.dumps(obj))
+
+    def get(self, api_version, kind, name, namespace="", copy=False):
+        from tpu_operator_torch.kube.client import NotFoundError
+
+        try:
+            return json.loads(json.dumps(self.objs[self._key(kind, name, namespace)]))
+        except KeyError:
+            raise NotFoundError(f"{kind} {namespace}/{name}") from None
+
+    def update(self, obj):
+        from tpu_operator_torch.kube.client import ConflictError
+
+        meta = obj["metadata"]
+        stored = self.objs[self._key(obj["kind"], meta["name"], meta.get("namespace", ""))]
+        if stored["metadata"]["resourceVersion"] != meta.get("resourceVersion"):
+            raise ConflictError(f"{obj['kind']}/{meta['name']}: stale resourceVersion")
+        return self.create(obj)
+
+    def list(self, api_version, kind, namespace=""):
+        return [json.loads(json.dumps(o)) for (k, ns, _), o in sorted(self.objs.items())
+                if k == kind and (not namespace or ns == namespace)]
+
+    def evict(self, name, namespace=""):
+        from tpu_operator_torch.kube.client import NotFoundError
+
+        if self.objs.pop(self._key("Pod", name, namespace), None) is None:
+            raise NotFoundError(f"Pod {namespace}/{name}")
+
+
+def check_slice_manager(tmp, chips, n) -> None:
+    """A node labelled by feature discovery, one slice a card and (two or
+    more cards) 1x2: each reconcile succeeds, its subslices cover exactly
+    the chip table's minors inside one NVLink domain each, the CDI spec's
+    composites hold exactly their cards' nodes and the plugin advertises
+    one ``nvidia.com/mig-<shape>`` device a subslice; a shape that does not
+    tile the host fails."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.kube.client import ConflictError
+    from tpu_operator_torch.plugin.manager import PluginManager
+    from tpu_operator_torch.sliceman import slice_manager as sm
+    from tpu_operator_torch.workloads import topology as topo
+
+    client_label = consts.DEPLOY_LABEL_PREFIX + "device-plugin"
+    node = {"apiVersion": "v1", "kind": "Node", "metadata": {"name": OPERANDS_NODE, "labels": {}}}
+    labels = tfd.gather_features(node, dev_root="/dev", driver_root="/", env={}, chips=chips)
+    node["metadata"]["labels"] = {**labels, client_label: "true"}
+    store = _Store([node])
+    stale = store.get("v1", "Node", OPERANDS_NODE)
+    store.update(store.get("v1", "Node", OPERANDS_NODE))
+    try:
+        store.update(stale)
+        raise RuntimeError("the store took a write from a stale read")
+    except ConflictError:
+        pass
+    profiles = {"all-1x1": "1x1", **({"all-1x2": "1x2"} if n >= 2 else {})}
+    bad = "1x3" if n % 3 else f"1x{n + 1}"
+    configs = {name: [{"devices": "all", "partitioned": True, "layout": {"shape": shape}}]
+               for name, shape in {**profiles, "bad": bad}.items()}
+    config_file, clients_file = os.path.join(tmp, "slice-configs.yaml"), os.path.join(tmp, "clients.yaml")
+    with open(config_file, "w") as f:
+        json.dump({"version": "v1", "slice-configs": configs}, f)  # JSON is YAML
+    with open(clients_file, "w") as f:
+        json.dump({"version": "v1", "kubernetes-labels": [client_label]}, f)
+    partition_file, spec_path = os.path.join(tmp, "partitions.json"), os.path.join(tmp, "cdi", "nvidia.json")
+    mgr = sm.SliceManager(store, OPERANDS_NODE, config_file=config_file, chip_clients_file=clients_file,
+                          partition_file=partition_file, cdi_spec_path=spec_path, dev_root="/dev",
+                          driver_root="/")
+    cards = {c["index"]: c for c in chips}
+    log(f"slice manager: node labels from feature discovery {json.dumps(labels)}")
+    for name, shape in {**profiles, "bad": bad}.items():
+        node = store.get("v1", "Node", OPERANDS_NODE)
+        node["metadata"]["labels"][consts.SLICE_CONFIG_LABEL] = name
+        store.update(node)
+        t0 = time.perf_counter()
+        state = mgr.reconcile_once()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        labels = store.get("v1", "Node", OPERANDS_NODE)["metadata"]["labels"]
+        want = sm.STATE_FAILED if name == "bad" else sm.STATE_SUCCESS
+        if state != want or labels[consts.SLICE_CONFIG_STATE_LABEL] != want or labels[client_label] != "true":
+            raise RuntimeError(f"slice config {name} ({shape}): {state}, labels {labels}")
+        if name == "bad":
+            log(f"slice manager: {shape} on {labels[consts.TFD_TOPOLOGY_LABEL]} -> {state} in "
+                f"{wall_ms:.1f} ms; clients restored")
+            continue
+        part = sm.read_partition_state(partition_file)
+        subs = part["subslices"]
+        ids = sorted(c for sub in subs for c in sub["chips"])
+        if ids != sorted(cards) or any(not topo.contiguous(sub["chips"], cards) for sub in subs):
+            raise RuntimeError(f"partition {subs} is not the chip table's {sorted(cards)} in domains")
+        with open(spec_path) as f:
+            spec = json.load(f)
+        composites = {d["name"]: sorted(x["path"] for x in d["containerEdits"]["deviceNodes"])
+                      for d in spec["devices"] if d["name"].startswith("subslice-")}
+        want_nodes = {f"subslice-{sub['id']}-{sub['shape']}": sorted(f"/dev/nvidia{c}" for c in sub["chips"])
+                      for sub in subs}
+        if composites != want_nodes:
+            raise RuntimeError(f"CDI composites {composites}, not {want_nodes}")
+        res = PluginManager(strategy="mixed", partition_file=partition_file).desired_resources()
+        got = {k: len(v.get("subslices", [])) for k, v in res.items()}
+        if got != {consts.MIG_RESOURCE_PREFIX + shape: len(subs)}:
+            raise RuntimeError(f"the plugin advertises {got} for {len(subs)} subslices of {shape}")
+        log(f"slice manager: {name} -> {state} in {wall_ms:.1f} ms; subslices "
+            f"{[sub['chips'] for sub in subs]} (generation {part['generation']!r}); CDI {composites}; "
+            f"plugin resources {got}")
+
+
+def exporter_pass(ex, prom: bool, chips, endpoint: str = "") -> tuple:
+    """({chip: {key: value}}, {(key, chip): source}) of one exporter pass;
+    through ``Exporter.collect_once`` where prometheus_client imports."""
+    if prom:
+        from prometheus_client import CollectorRegistry
+
+        exp = ex.Exporter(node_name=OPERANDS_NODE, registry=CollectorRegistry(), metricsd_endpoint=endpoint)
+        values = exp.collect_once()
+        return values, {(k, c): s for k, c, s in exp._last_series}
+    from tpu_operator_torch.native import gpuinfo
+
+    data = ex.fetch_metricsd(endpoint) or gpuinfo.metrics(chips=chips)
+    values, series = ex.collect_values(data, ex.DEFAULT_METRICS, chips)
+    return values, {(k, c): s for (k, c, s), _ in series}
+
+
+def busy_exporter_pass(ex, prom, chips) -> tuple:
+    """An exporter pass while ~``BUSY_S`` of 8192^2 bf16 products run on
+    cuda:0: the products are queued first, the pass reads NVML half way."""
+    a = torch.randn(8192, 8192, dtype=torch.bfloat16, device="cuda:0")
+    b, c = torch.randn_like(a), torch.empty_like(a)
+    ms = time_ms(lambda: torch.mm(a, b, out=c), 5)
+    for _ in range(int(BUSY_S * 1e3 / ms) + 1):
+        torch.mm(a, b, out=c)  # the host blocks once the launch queue is full
+    time.sleep(BUSY_S / 2)
+    try:
+        return exporter_pass(ex, prom, chips)
+    finally:
+        torch.cuda.synchronize()
+
+
+def check_exporter(tmp, chips, n) -> None:
+    """One exporter pass over NVML idle and one under load (each series'
+    source printed), one through the metrics daemon's sampler, and the
+    ``/metrics`` text where prometheus_client imports."""
+    from tpu_operator_torch.exporter import exporter as ex
+    from tpu_operator_torch.metricsd.daemon import MetricsDaemon
+    from tpu_operator_torch.workloads import topology as topo
+
+    try:
+        import prometheus_client
+
+        prom = True
+        log(f"exporter: prometheus_client imports ({getattr(prometheus_client, '__version__', 'no version')})")
+    except ImportError as e:
+        prom = False
+        log(f"exporter: prometheus_client does not import ({e}); the values are held without gauges")
+    gen = topo.device_generation(chips[0]["name"])
+    if gen is None:
+        raise RuntimeError(f"no variant for {chips[0]['name']!r}")
+    values, sources = exporter_pass(ex, prom, chips)
+    log(f"exporter idle: {json.dumps(values)}; sources {json.dumps({f'{k}/{c}': s for (k, c), s in sorted(sources.items())})}")
+    for chip in chips:
+        cid = str(chip["index"])
+        v = values.get(cid, {})
+        if v.get("present") != 1.0 or sources[("present", cid)] != "devfs":
+            raise RuntimeError(f"card {cid}: present {v.get('present')}")
+        if v.get("hbm_total") != topo.HBM_GB[gen] * 2**30 or sources[("hbm_total", cid)] != "spec":
+            raise RuntimeError(f"card {cid}: hbm_total {v.get('hbm_total')}, not {gen}'s {topo.HBM_GB[gen]} GiB")
+        if "duty_cycle" in v and not (0 <= v["duty_cycle"] <= 100 and sources[("duty_cycle", cid)] == "nvml"):
+            raise RuntimeError(f"card {cid}: duty_cycle {v['duty_cycle']} from {sources[('duty_cycle', cid)]}")
+        if "hbm_used" in v and not v["hbm_used"] <= chip.get("memory_total_bytes", 0):
+            raise RuntimeError(f"card {cid}: hbm_used {v['hbm_used']} above NVML's total")
+        if v.get("ici_links") != topo.nvlink_pair_count({c["index"]: c for c in chips}):
+            raise RuntimeError(f"card {cid}: ici_links {v.get('ici_links')}")
+    busy, _ = busy_exporter_pass(ex, prom, chips)
+    first = str(chips[0]["index"])
+    log(f"exporter: duty_cycle idle {values[first].get('duty_cycle')} busy {busy[first].get('duty_cycle')}; "
+        f"hbm_used idle {values[first].get('hbm_used')} busy {busy[first].get('hbm_used')}; "
+        f"temperature idle {values[first].get('temperature')} busy {busy[first].get('temperature')} "
+        f"(card {first}, NVML; ~{BUSY_S} s of torch.mm on cuda:0)")
+
+    port = _free_port()
+    daemon = MetricsDaemon(own_chip=True, drop_file=os.path.join(tmp, "metricsd.json"), interval_s=3600.0)
+    server = daemon.serve(port=port, block=False)
+    try:
+        deadline = time.time() + 60
+        while not daemon.latest()["chips"] and time.time() < deadline:
+            time.sleep(0.05)
+        sampled, sources = exporter_pass(ex, prom, chips, endpoint=f"127.0.0.1:{port}")
+    finally:
+        daemon.stop()
+        server.shutdown()
+        server.server_close()
+    util = {c: (v.get("tensorcore_util"), sources.get(("tensorcore_util", c))) for c, v in sampled.items()}
+    log(f"exporter through metricsd :{port}: tensorcore_util {util}")
+    if sorted(util, key=int) != [str(c["index"]) for c in chips] or any(s != "sampler" for _, s in util.values()):
+        raise RuntimeError(f"tensorcore_util not from the sampler on every card: {util}")
+
+    if prom:
+        from prometheus_client import CollectorRegistry
+
+        exp = ex.Exporter(node_name=OPERANDS_NODE, registry=CollectorRegistry(), interval_s=3600.0)
+        port = _free_port()
+        served = exp.run(port=port, block=False)
+        try:
+            text, deadline = "", time.time() + 60
+            while "gpu_present{" not in text and time.time() < deadline:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+                    text = r.read().decode()
+                time.sleep(0.05)
+        finally:
+            exp.stop()
+            if isinstance(served, tuple):
+                served[0].shutdown()
+                served[0].server_close()
+        names = sorted({line.split("{", 1)[0] for line in text.splitlines()
+                        if line.startswith("gpu_") and "{" in line})
+        exported = sorted(ex.ALL_METRICS[k][0] for k in {k for v in values.values() for k in v})
+        if names != exported or "tpu_" in text:
+            raise RuntimeError(f"/metrics names {names}, not {exported}")
+        log(f"exporter: GET /metrics :{port} names {names}")
+
+
+def check_driver_installer(tmp, comp) -> None:
+    """A payload of the machine's own libcuda and libnvidia-ml (the
+    targets of their .so.1 links) installed into a temporary driver root:
+    the ``driver`` component passes on it, VERSION is NVML's driver
+    version, and after ``uninstall`` the component fails."""
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.operands import devchar, driver_installer
+
+    libs = comp.find_driver_libraries("/")
+    payload, root = os.path.join(tmp, "payload"), os.path.join(tmp, "driver")
+    os.makedirs(payload)
+    for key, name in (("libcuda", "libcuda"), ("libnvidia_ml", "libnvidia-ml")):
+        links = [p for p in libs[key] if os.path.basename(p) == f"{name}.so.1"]
+        if not links:
+            raise RuntimeError(f"no {name}.so.1 under / ({libs[key]})")
+        target = os.path.realpath(links[0])
+        os.symlink(target, os.path.join(payload, os.path.basename(target)))
+    t0 = time.perf_counter()
+    version = driver_installer.install(payload, root)
+    install_s = time.perf_counter() - t0
+    nvml_version = gpuinfo.driver_version()
+    with open(os.path.join(root, driver_installer.LIB_DIR, "VERSION")) as f:
+        recorded = f.read().strip()
+    if not (version == recorded == nvml_version):
+        raise RuntimeError(f"installed {version}, VERSION {recorded}, NVML {nvml_version}")
+    env = {**os.environ, devchar.DISABLE_ENV: "true"}
+    status_dir = os.path.join(tmp, "validations")
+    for installed in (True, False):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_operator_torch.validator", "--component", "driver",
+             "--driver-root", root, "--output-dir", status_dir],
+            capture_output=True, text=True, timeout=120, env=env,
+        )
+        wall = time.perf_counter() - t0
+        if installed:
+            if proc.returncode != 0:
+                raise RuntimeError(f"driver component on the install: rc={proc.returncode}\n{proc.stderr[-2000:]}")
+            with open(os.path.join(status_dir, "driver-ready")) as f:
+                payload_libs = json.load(f)["libcuda"]
+            if not payload_libs or not all(p.startswith(root) for p in payload_libs):
+                raise RuntimeError(f"driver-ready names {payload_libs}, not the install under {root}")
+            log(f"driver installer: {sorted(os.listdir(payload))} -> {root} in {install_s:.2f} s, "
+                f"VERSION {recorded} == NVML's; cli driver --driver-root <install> rc=0 {wall:.2f} s, "
+                f"libcuda {[os.path.basename(p) for p in payload_libs]}")
+            driver_installer.uninstall(root)
+        elif proc.returncode == 0 or "libcuda.so not found" not in proc.stderr:
+            raise RuntimeError(f"driver component after uninstall: rc={proc.returncode}\n{proc.stderr[-2000:]}")
+        else:
+            log(f"driver installer: after uninstall cli driver rc={proc.returncode} {wall:.2f} s: "
+                f"{proc.stderr.strip().splitlines()[-1]}")
+
+
+def check_driver_manager(tmp, comp) -> None:
+    """``uninstall_gpu_driver`` on the store: the pod that requests a card
+    is evicted, the one that requests nothing stays, and the five
+    barriers are gone."""
+    from tpu_operator_torch.operands import driver_manager
+
+    def pod(name, resources):
+        return {"apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": name, "namespace": "default",
+                             "ownerReferences": [{"kind": "Job", "name": name, "uid": name}]},
+                "spec": {"nodeName": OPERANDS_NODE, "containers": [{"resources": resources}]}}
+
+    store = _Store([pod("gpu-job", {"limits": {"nvidia.com/gpu": "1"}}), pod("cpu-job", {})])
+    status = comp.StatusFiles(os.path.join(tmp, "manager"))
+    for name in driver_manager.BARRIERS:
+        status.write(name)
+    t0 = time.perf_counter()
+    rc = driver_manager.uninstall_gpu_driver(store, OPERANDS_NODE, status, eviction_timeout_s=30)
+    left = [p["metadata"]["name"] for p in store.list("v1", "Pod")]
+    if rc != 0 or left != ["cpu-job"] or any(status.exists(b) for b in driver_manager.BARRIERS):
+        raise RuntimeError(f"driver manager: rc={rc}, pods left {left}")
+    log(f"driver manager: rc=0 in {(time.perf_counter() - t0) * 1e3:.1f} ms; evicted gpu-job, kept "
+        f"{left}; barriers {list(driver_manager.BARRIERS)} cleared")
+
+
+def check_sandbox_operands(tmp, comp, chips) -> None:
+    """The vfio manager on a PCI tree written from the chip table beside an
+    NVSwitch and a foreign function (never the host's /sys/bus/pci: it
+    would unbind the cards under test), the vm and vm-device managers on a
+    vfio tree of one group a card, and kata's snippet; each component
+    passes on what its operand wrote."""
+    from tpu_operator_torch.operands import vfio_manager, vm_manager
+
+    pci = os.path.join(tmp, "pci")
+    os.makedirs(os.path.join(pci, "drivers", "vfio-pci"))
+    open(os.path.join(pci, "drivers_probe"), "w").close()
+    cards = [c.get("pci_address") or f"0000:{0x18 + i:02x}:00.0" for i, c in enumerate(chips)]
+    functions = {addr: ("0x10de", "0x030200", "nvidia") for addr in cards}
+    functions["0000:fe:00.0"] = ("0x10de", "0x068000", "nvidia-nvswitch")
+    functions["0000:fe:01.0"] = ("0x8086", "0x030000", "i915")
+    for addr, (vendor, cls, driver) in functions.items():
+        d = os.path.join(pci, "devices", addr)
+        os.makedirs(d)
+        for fname, value in (("vendor", vendor), ("class", cls), ("driver_override", "")):
+            with open(os.path.join(d, fname), "w") as f:
+                f.write(value + "\n" if value else "")
+        os.makedirs(os.path.join(pci, "drivers", driver), exist_ok=True)
+        open(os.path.join(pci, "drivers", driver, "unbind"), "w").close()
+        os.symlink(os.path.join(pci, "drivers", driver), os.path.join(d, "driver"))
+    write = vfio_manager._write
+
+    def kernel_write(path, value):
+        # the kernel's part on a fixture tree: drivers_probe binds by
+        # driver_override, an unbind write drops the driver link
+        write(path, value)
+        dev = os.path.join(pci, "devices", value.strip())
+        if path.endswith("drivers_probe"):
+            with open(os.path.join(dev, "driver_override")) as f:
+                if f.read() == "vfio-pci" and not os.path.islink(os.path.join(dev, "driver")):
+                    os.symlink(os.path.join(pci, "drivers", "vfio-pci"), os.path.join(dev, "driver"))
+        elif path.endswith("unbind"):
+            os.unlink(os.path.join(dev, "driver"))
+
+    status = comp.StatusFiles(os.path.join(tmp, "sandbox"))
+    vfio_manager._write = kernel_write
+    try:
+        rc = vfio_manager.bind_all(pci, status)
+        info = comp.validate_vfio_pci(status, sysfs=os.path.join(pci, "devices"))
+        switch = vfio_manager.current_driver("0000:fe:00.0", pci)
+        if rc != 0 or info["bound"] != sorted(cards) or switch != "nvidia-nvswitch":
+            raise RuntimeError(f"vfio manager: rc={rc}, bound {info}, NVSwitch on {switch!r}")
+        vfio_manager.unbind_all(pci, status)
+        released = {a: vfio_manager.current_driver(a, pci) for a in cards}
+        if any(released.values()) or status.exists("vfio-pci-ready"):
+            raise RuntimeError(f"unbind-all left {released}")
+    finally:
+        vfio_manager._write = write
+    log(f"vfio manager (fixture tree): bound {info['bound']}, NVSwitch kept {switch!r}, foreign kept "
+        f"{vfio_manager.current_driver('0000:fe:01.0', pci)!r}; vfio-pci component passed; unbind-all released")
+
+    dev = os.path.join(tmp, "vmdev")
+    os.makedirs(os.path.join(dev, "vfio"))
+    for name in ["vfio"] + [str(10 + i) for i in range(len(chips))]:
+        open(os.path.join(dev, "vfio", name), "w").close()
+    config = os.path.join(tmp, "vm-devices.yaml")
+    with open(config, "w") as f:
+        json.dump({"vm-device-configs": {"default": [{"devices": "all", "passthrough": True}]}}, f)
+    state_file = os.path.join(tmp, "vm-devices.json")
+    if vm_manager.vm_manager_ready(dev, status) != 0:
+        raise RuntimeError("vm manager refused the vfio tree")
+    groups = comp.validate_vm_manager(status, dev_root=dev)["groups"]
+    vm_manager.apply_vm_device_config(config, "default", dev, state_file)
+    devices = comp.validate_vm_devices(status, dev_root=dev, state_file=state_file, retries=1)
+    vm_manager.install_kata(os.path.join(tmp, "kata-src"), os.path.join(tmp, "kata"),
+                            os.path.join(tmp, "conf.d"))
+    snippets = os.listdir(os.path.join(tmp, "conf.d"))
+    if len(groups) != len(chips) or devices["devices"] != len(chips) or not snippets:
+        raise RuntimeError(f"vm operands: groups {groups}, devices {devices}, kata {snippets}")
+    log(f"vm operands (fixture tree): vm-manager and vm-devices components passed on {len(groups)} "
+        f"group(s); kata snippet {snippets}")
+    log(f"MIG mode (NVML, current/pending; absent where NVML does not answer): "
+        f"{ {c['index']: (c.get('mig_mode'), c.get('mig_mode_pending')) for c in chips} }")
+
+
+def phase_node_operands() -> None:
+    """The node's partition and telemetry operands (phase 8); raises on
+    any miss."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.validator import components as comp
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    n = torch.cuda.device_count()
+    chips = gpuinfo.chip_summary()
+    if len(chips) != n or any(c["source"] != "nvml" for c in chips):
+        raise RuntimeError(f"the chip table does not hold torch's {n} cards from NVML: {chips}")
+    with tempfile.TemporaryDirectory(prefix="cs8-") as tmp:
+        for step, check in (
+            ("slice manager", lambda: check_slice_manager(tmp, chips, n)),
+            ("exporter", lambda: check_exporter(tmp, chips, n)),
+            ("driver installer", lambda: check_driver_installer(tmp, comp)),
+            ("driver manager", lambda: check_driver_manager(tmp, comp)),
+            ("vfio and vm operands", lambda: check_sandbox_operands(tmp, comp, chips)),
+        ):
+            t0 = time.perf_counter()
+            check()
+            log(f"phase 8 {step}: {time.perf_counter() - t0:.2f} s")
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the node's operands launched kernels of the package: {launched}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"node operands on: {smi.stdout.strip() or smi.stderr.strip()}; no kernel of the package "
+        f"launched; phase 8 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -1486,6 +1947,7 @@ def main() -> int:
     phase_multidevice()
     phase_node_agents()
     phase_device_stack()
+    phase_node_operands()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -240,6 +240,8 @@ class _FakeNvml:
         self.nvmlDeviceGetPowerManagementLimit = limit
         self.nvmlDeviceGetMemoryInfo = lambda h, out: 3
         self.nvmlDeviceGetUtilizationRates = lambda h, out: 3
+        self.nvmlDeviceGetTemperature = lambda h, sensor, out: 3
+        self.nvmlDeviceGetMigMode = lambda h, current, pending: 3
 
 
 def test_nvml_table_keys_cards_by_minor_and_bus_id(monkeypatch, tmp_path):

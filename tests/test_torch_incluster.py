@@ -174,3 +174,27 @@ def test_no_client_outside_a_pod(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="CA bundle"):
         InClusterClient()
     assert cli._client_or_none(logging.getLogger("t")) is None
+
+
+@pytest.mark.parametrize(
+    "status,exc",
+    [(201, None), (404, (ref_client.NotFoundError, kclient.NotFoundError)),
+     (429, (ref_client.EvictionBlockedError, kclient.EvictionBlockedError))],
+)
+def test_evict_matches_the_reference(server, status, exc):
+    """``evict`` POSTs the reference's Eviction to the Pod's eviction
+    subresource, once; 404 is the Pod already gone, 429 a disruption
+    budget's veto."""
+    sent = []
+    for i, client in enumerate(_clients(server)):
+        _Handler.script, _Handler.requests = [(status, b'{"kind": "Status"}')], []
+        if exc is None:
+            client.evict("train-0", "ns")
+        else:
+            with pytest.raises(exc[i]):
+                client.evict("train-0", "ns")
+        sent.append(_Handler.requests)
+    assert sent[1] == sent[0]
+    assert [(m, p) for m, p, _, _ in sent[1]] == [("POST", "/api/v1/namespaces/ns/pods/train-0/eviction")]
+    assert sent[1][0][2] == {"apiVersion": "policy/v1", "kind": "Eviction",
+                             "metadata": {"name": "train-0", "namespace": "ns"}}

@@ -18,8 +18,12 @@ metrics daemon in ``metricsd/``) read the card through ``native/gpuinfo.py``
 agents that advertise the cards to the kubelet: the CDI spec and its
 runtime wire (``plugin/cdi.py``, ``operands/runtime_wire.py``), the device
 plugin (``plugin/``, over the kubelet's gRPC API) and feature discovery
-(``discovery/``), placed by ``workloads/topology.py``. grpc, protobuf and
-PyYAML are imported only inside the functions that need them.
+(``discovery/``), placed by ``workloads/topology.py``, nor the node's
+partition and telemetry operands: the slice manager (``sliceman/``), the
+metrics exporter (``exporter/``) and the driver, driver-manager, vfio and
+VM operands (``operands/``). grpc, protobuf, PyYAML and
+``prometheus_client`` are imported only inside the functions that need
+them.
 
 The package imports ``torch`` and never ``jax`` or ``tpu_operator``.
 Entry points run on ``cuda`` unless the caller asks for the CPU, where each

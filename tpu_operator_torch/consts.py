@@ -21,6 +21,12 @@ TFD_WORKER_ID_LABEL = f"{TFD_LABEL_PREFIX}worker-id"
 TFD_SLICE_ID_LABEL = f"{TFD_LABEL_PREFIX}slice-id"
 GKE_NODEPOOL_LABEL = "cloud.google.com/gke-nodepool"
 SLICE_READY_LABEL = f"{GROUP}/tpu.slice.ready"
+# the slice manager's desired layout and its state (pending|success|failed),
+# written by the control plane's repartition controller (:166-167)
+SLICE_CONFIG_LABEL = f"{GROUP}/tpu.slice.config"
+SLICE_CONFIG_STATE_LABEL = f"{GROUP}/tpu.slice.config.state"
+# an operand's deploy label, as the chip-clients file lists them (:68)
+DEPLOY_LABEL_PREFIX = f"{GROUP}/tpu.deploy."
 VALIDATOR_PERF_ANNOTATION = f"{GROUP}/validator-perf"
 # the driver version that tags the validator-perf readings, as GPU feature
 # discovery publishes it (stands in for TFD_LIBTPU_VERSION_LABEL, :256)
@@ -59,6 +65,8 @@ PLUGIN_SOCKET_NAME = "nvidia-gpu.sock"
 # GPU feature discovery's NFD feature file
 NFD_FEATURE_FILE = "/etc/kubernetes/node-feature-discovery/features.d/gpu"
 VM_DEVICE_STATE_FILE = "/run/tpu/vm-devices.json"
+# the kata runtime class for sandboxed GPU pods (stands in for kata-tpu)
+KATA_RUNTIME_CLASS = "kata-qemu-nvidia-gpu"
 
 # the barrier chain that admits a node (stand in for :274-292)
 STATUS_FILE_DRIVER = "driver-ready"

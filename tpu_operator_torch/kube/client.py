@@ -1,8 +1,8 @@
 """Errors of the API server and the conflict-retried update.
 
 The port's copy of ``tpu_operator/kube/client.py``'s ``NotFoundError``,
-``ConflictError`` and ``mutate_with_retry`` (``:62``). Objects are plain
-dicts in Kubernetes wire format.
+``ConflictError``, ``EvictionBlockedError`` and ``mutate_with_retry``
+(``:62``). Objects are plain dicts in Kubernetes wire format.
 """
 
 from __future__ import annotations
@@ -20,6 +20,11 @@ class NotFoundError(KeyError):
 
 class ConflictError(RuntimeError):
     """resourceVersion conflict on update (HTTP 409)."""
+
+
+class EvictionBlockedError(RuntimeError):
+    """Eviction vetoed by a PodDisruptionBudget (HTTP 429 on the
+    ``pods/<name>/eviction`` subresource); the caller retries later."""
 
 
 def mutate_with_retry(

@@ -1,11 +1,12 @@
 """An in-cluster Kubernetes client on the standard library.
 
-The node agents need six verbs: ``get``, ``get_or_none``, ``list``,
-``create``, ``update`` and ``delete_if_exists``, over Node, Pod, Service
-and DaemonSet. They go over HTTPS to the API server with the pod's
-service-account token and CA, as ``tpu_operator/kube/rest.py``'s
-``RestClient`` does; its paging, watches, apply and connection pool
-belong to the control plane and wait for its port.
+The node agents need seven verbs: ``get``, ``get_or_none``, ``list``,
+``create``, ``update``, ``delete_if_exists`` over Node, Pod, Service and
+DaemonSet, and ``evict`` (the Pod's eviction subresource). They go over
+HTTPS to the API server with the pod's service-account token and CA, as
+``tpu_operator/kube/rest.py``'s ``RestClient`` does; its paging,
+watches, apply and connection pool belong to the control plane and wait
+for its port.
 """
 
 from __future__ import annotations
@@ -18,7 +19,12 @@ from http.client import HTTPException, HTTPSConnection
 from typing import List, Optional
 from urllib.parse import quote
 
-from tpu_operator_torch.kube.client import ConflictError, NotFoundError, Obj
+from tpu_operator_torch.kube.client import (
+    ConflictError,
+    EvictionBlockedError,
+    NotFoundError,
+    Obj,
+)
 
 SA_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
 
@@ -33,6 +39,10 @@ KIND_TABLE = {
 
 class TransientAPIError(RuntimeError):
     """429 or 5xx from the API server: a read retries it."""
+
+
+class TooManyRequestsError(TransientAPIError):
+    """HTTP 429: on the eviction subresource a disruption budget's veto."""
 
 
 def _resource_path(api_version: str, kind: str, namespace: str = "", name: str = "") -> str:
@@ -110,7 +120,9 @@ class InClusterClient:
             raise NotFoundError(path)
         if resp.status == 409:
             raise ConflictError(path)
-        if resp.status == 429 or resp.status >= 500:
+        if resp.status == 429:
+            raise TooManyRequestsError(f"{method} {path} -> 429: {data[:512]!r}")
+        if resp.status >= 500:
             raise TransientAPIError(f"{method} {path} -> {resp.status}: {data[:512]!r}")
         if resp.status >= 400:
             raise RuntimeError(f"{method} {path} -> {resp.status}: {data[:512]!r}")
@@ -165,3 +177,19 @@ class InClusterClient:
             return True
         except NotFoundError:
             return False
+
+    def evict(self, name: str, namespace: str = "") -> None:
+        """POST a ``policy/v1`` Eviction to the Pod's eviction
+        subresource, so disruption budgets can veto (429 raises
+        ``EvictionBlockedError``); a Pod already gone raises
+        ``NotFoundError`` (``rest.py::create``'s Eviction branch)."""
+        body = {
+            "apiVersion": "policy/v1",
+            "kind": "Eviction",
+            "metadata": {"name": name, "namespace": namespace},
+        }
+        path = _resource_path("v1", "Pod", namespace, name) + "/eviction"
+        try:
+            self._request("POST", path, body)
+        except TooManyRequestsError as e:
+            raise EvictionBlockedError(str(e)) from e

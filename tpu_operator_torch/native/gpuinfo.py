@@ -4,10 +4,11 @@ The counterpart of ``tpu_operator/native/tpuinfo.py`` and the enumeration
 of ``native/libtpuinfo.cpp``, with the same native-or-Python split
 (``tpuinfo.py:1-8``): where the host driver ships ``libnvidia-ml.so.1``,
 NVML is loaded through ``ctypes`` and gives each card's name, UUID, PCI
-bus id, power limit, memory and utilization (``source: "nvml"``); without
-it the table comes from the device nodes, ``/proc/driver/nvidia/gpus`` and
-sysfs (``source: "sysfs"``). Both give the same data shape, so callers
-never branch; ``source`` says which one answered.
+bus id, power limit, memory, utilization, temperature and MIG mode
+(``source: "nvml"``); without it the table comes from the device nodes,
+``/proc/driver/nvidia/gpus`` and sysfs (``source: "sysfs"``). Both give
+the same data shape, so callers never branch; ``source`` says which one
+answered.
 
 Three orders number the cards: NVML's index, the minor number of
 ``/dev/nvidiaN`` and CUDA's default ``FASTEST_FIRST``. A card's ``index``
@@ -36,6 +37,7 @@ SYSFS_PCI = "/sys/bus/pci/devices"
 _CARD_NODE = re.compile(r"nvidia(\d+)")
 
 NVML_SUCCESS = 0
+NVML_TEMPERATURE_GPU = 0  # nvmlTemperatureSensors_t: the die
 NVML_NAMES = ("libnvidia-ml.so.1",)
 _NAME_LEN = 96
 _UUID_LEN = 96
@@ -83,6 +85,8 @@ NVML_SIGNATURES = {
     "nvmlDeviceGetPowerManagementLimit": ([_HANDLE, _UINT_P], ctypes.c_int),
     "nvmlDeviceGetMemoryInfo": ([_HANDLE, ctypes.POINTER(_Memory)], ctypes.c_int),
     "nvmlDeviceGetUtilizationRates": ([_HANDLE, ctypes.POINTER(_Utilization)], ctypes.c_int),
+    "nvmlDeviceGetTemperature": ([_HANDLE, ctypes.c_int, _UINT_P], ctypes.c_int),
+    "nvmlDeviceGetMigMode": ([_HANDLE, _UINT_P, _UINT_P], ctypes.c_int),
 }
 
 _lib = None
@@ -130,6 +134,24 @@ def is_card_function(vendor: Optional[str], pci_class: Optional[str]) -> bool:
     ).strip().lower().startswith(CARD_PCI_CLASSES)
 
 
+def card_functions(devices_dir: str = SYSFS_PCI) -> List[str]:
+    """The sorted PCI addresses under a sysfs ``devices`` directory whose
+    vendor and class read as a card: the functions the vfio manager binds
+    and the ``vfio-pci`` component checks."""
+    out = []
+    for addr in sorted(os.listdir(devices_dir)) if os.path.isdir(devices_dir) else []:
+        try:
+            with open(os.path.join(devices_dir, addr, "vendor")) as f:
+                vendor = f.read()
+            with open(os.path.join(devices_dir, addr, "class")) as f:
+                pci_class = f.read()
+        except OSError:
+            continue
+        if is_card_function(vendor, pci_class):
+            out.append(addr)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # NVML
 # ---------------------------------------------------------------------------
@@ -168,7 +190,8 @@ def _nvml_card(lib, i: int, dev_root: str) -> dict:
         return rc == NVML_SUCCESS
 
     pci, uuid, limit = _PciInfo(), ctypes.create_string_buffer(_UUID_LEN), ctypes.c_uint()
-    mem, util = _Memory(), _Utilization()
+    mem, util, temp = _Memory(), _Utilization(), ctypes.c_uint()
+    mig, mig_pending = ctypes.c_uint(), ctypes.c_uint()
     if answered("pci", lib.nvmlDeviceGetPciInfo_v3(handle, ctypes.byref(pci))) and pci.busId:
         card["pci_address"] = normalize_bus_id(pci.busId.decode())
     if answered("uuid", lib.nvmlDeviceGetUUID(handle, uuid, _UUID_LEN)):
@@ -179,6 +202,10 @@ def _nvml_card(lib, i: int, dev_root: str) -> dict:
         card["memory_total_bytes"], card["memory_used_bytes"] = mem.total, mem.used
     if answered("utilization", lib.nvmlDeviceGetUtilizationRates(handle, ctypes.byref(util))):
         card["utilization_gpu"], card["utilization_memory"] = util.gpu, util.memory
+    if answered("temperature", lib.nvmlDeviceGetTemperature(handle, NVML_TEMPERATURE_GPU, ctypes.byref(temp))):
+        card["temperature_c"] = temp.value
+    if answered("mig mode", lib.nvmlDeviceGetMigMode(handle, ctypes.byref(mig), ctypes.byref(mig_pending))):
+        card["mig_mode"], card["mig_mode_pending"] = mig.value, mig_pending.value
     if skipped:
         log.debug("nvml card %d: not reported: %s", i, "; ".join(skipped))
     return card
@@ -216,7 +243,8 @@ def chip_summary(
 ) -> List[dict]:
     """Per-card dicts: ``{index, path, source, name?, uuid?, pci_address?,
     numa_node?, vendor?, pci_class?}``, with ``power_limit_mw``,
-    ``memory_*_bytes`` and ``utilization_*`` where NVML answers."""
+    ``memory_*_bytes``, ``utilization_*``, ``temperature_c`` and
+    ``mig_mode``/``mig_mode_pending`` (1 enabled) where NVML answers."""
     lib = _load()
     if lib is not None:
         cards = _nvml_chips(lib, dev_root, sysfs)
@@ -250,11 +278,13 @@ def chip_count(dev_root: str = "/dev") -> int:
     return len(chip_summary(dev_root))
 
 
-def metrics(dev_root: str = "/dev") -> dict:
-    """Utilization counters; NVML gives real values, the sysfs path gives
-    presence only (``source`` says which)."""
-    chips = chip_summary(dev_root)
-    counters = ("utilization_gpu", "utilization_memory", "memory_used_bytes", "power_limit_mw")
+def metrics(dev_root: str = "/dev", chips: Optional[List[dict]] = None) -> dict:
+    """Utilization counters of ``chips`` (the chip table by default); NVML
+    gives real values, the sysfs path gives presence only (``source``
+    says which)."""
+    chips = chips if chips is not None else chip_summary(dev_root)
+    counters = ("utilization_gpu", "utilization_memory", "memory_used_bytes", "power_limit_mw",
+                "temperature_c")
     return {
         "source": chips[0]["source"] if chips else "sysfs",
         "chips": [

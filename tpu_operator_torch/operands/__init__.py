@@ -1,2 +1,4 @@
 """The operands the port's node agents run or call: the /dev/char links,
-the VFIO group scan and the runtime wire that keeps the CDI spec fresh."""
+the runtime wire that keeps the CDI spec fresh, the driver container's
+installer and its driver manager, the vfio manager and the sandbox
+operands (vm-manager, vm-device-manager, kata-manager)."""

@@ -548,16 +548,7 @@ def validate_vfio_pci(
     bound, unbound = [], []
     if not os.path.isdir(sysfs):
         raise ValidationError(f"no sysfs PCI tree at {sysfs}")
-    for addr in sorted(os.listdir(sysfs)):
-        try:
-            with open(os.path.join(sysfs, addr, "vendor")) as f:
-                vendor = f.read().strip()
-            with open(os.path.join(sysfs, addr, "class")) as f:
-                pci_class = f.read().strip()
-        except OSError:
-            continue
-        if not gpuinfo.is_card_function(vendor, pci_class):
-            continue
+    for addr in gpuinfo.card_functions(sysfs):
         driver = os.path.join(sysfs, addr, "driver")
         target = os.path.basename(os.readlink(driver)) if os.path.islink(driver) else ""
         (bound if target == "vfio-pci" else unbound).append(addr)
