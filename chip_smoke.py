@@ -13,7 +13,9 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    of each of the eight instances of the Hopper kernel, K3, K4, K5, K6a,
    K6b, K7a, K7b and K7c (``cuobjdump``; a missing instance, no HGMMA or
    UTMALDG, any HMMA in any function of the library, or a ``MUFU.EX2`` in
-   K6a or K6b, whose softmax is gone, fails);
+   K6a or K6b, whose softmax is gone, fails); then build the native
+   programs with ``g++`` (``native/build.py``), so that phases 6-9 and
+   the CLI read the chip table through ``libgpuinfo.so``;
 2. first, under a watchdog of ``PARTIAL_TILE_TIMEOUT_S`` (a wrong TMA
    transaction count on a box that reaches past seq would hang a kernel),
    every flash kernel at ``PARTIAL_TILE_SHAPES``, seqs its blocks do not
@@ -121,6 +123,24 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    requests a card evicted, the five barriers cleared); the vfio manager
    and the vm, vm-device and kata managers on fixture trees only, and the
    cards' MIG mode printed; this path launches none of K1-K7c;
+9. (after 8, before 4) the native programs, on every card: their build
+   (``g++ --version`` and seconds logged); ``gpu_smoke --json`` exits 0
+   with ``torch.cuda.device_count()`` cards whose names are
+   ``nvidia-smi``'s, and exits 2 on an empty ``--dev-root`` with an NVML
+   that does not answer; the native chip table equal to the ``ctypes``
+   table on the identity fields (every card ``nvml``), its counters
+   present alike and in range, one call of each timed in turns, and the
+   native device probe equal to the Python one on every card's node;
+   ``python -m tpu_operator_torch.metricsd --port 0`` execs the
+   hostengine (``/json`` names it), which merges the side file the port's
+   sampler wrote on cuda:0 (``tensorcore_util`` in (0, 100], ``sampler``),
+   drops it when stale (``gpu_metricsd_sample_fresh 0``), publishes a drop
+   file read back through ``libgpuinfo`` and stops on SIGTERM, while
+   ``--no-native`` serves from Python; ``run_telemetry_chain`` with the
+   sampler's reading while products run on cuda:0 is ``ok``, with
+   ``tensorcore_util`` from the sampler and ``duty_cycle`` above 0 from
+   NVML (every series' source printed); the /json GET's ms and the
+   phase's wall time logged; this path launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -298,6 +318,13 @@ def phase_setup():
     _build.library()
     info = _build.build_info
     log(f"kernels built={info['built']} in {info['seconds']:.1f} s: {info['path']}")
+    # the native programs, so that every later phase reads the chip table
+    # through libgpuinfo
+    from tpu_operator_torch.native import build as native_build
+
+    native = native_build.build()
+    log(f"native programs ({native_build.cxx_version()}) built={native['built']} in "
+        f"{native['seconds']:.2f} s: {native['dir']}")
     ptxas = os.path.join(os.path.dirname(info["path"]), "ptxas.log")
     serialized = []
     if os.path.exists(ptxas):
@@ -1909,6 +1936,305 @@ def phase_node_operands() -> None:
         f"launched; phase 8 {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 9: the native programs
+NATIVE_TIMEOUT_S = 30  # for a hostengine to bind, serve or merge a side file
+NATIVE_REPS = 5  # table calls and GETs timed
+# the chip table's fields that two reads of a card give alike; the rest
+# are counters, which move between reads
+IDENTITY_FIELDS = ("index", "path", "name", "uuid", "pci_address", "power_limit_mw",
+                   "memory_total_bytes", "mig_mode", "mig_mode_pending", "numa_node", "vendor",
+                   "pci_class", "source")
+COUNTER_RANGES = {"utilization_gpu": (0, 100), "utilization_memory": (0, 100),
+                  "temperature_c": (0, 125), "memory_used_bytes": (0, float("inf"))}
+NVML_DRIVER_NOT_LOADED = 9
+
+
+def nvml_down_stub(path: str) -> None:
+    """Compile a libnvidia-ml.so.1 stand-in at ``path`` whose every entry
+    answers DRIVER_NOT_LOADED: with it the native probe reads the device
+    nodes, as on a node whose driver has not come up."""
+    from tpu_operator_torch.native import build as native_build
+    from tpu_operator_torch.native import gpuinfo
+
+    body = "".join(
+        'const char* nvmlErrorString(...) { return "Driver Not Loaded"; }\n' if name == "nvmlErrorString"
+        else f"int {name}(...) {{ return {NVML_DRIVER_NOT_LOADED}; }}\n"
+        for name in gpuinfo.NVML_SIGNATURES)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    subprocess.run([native_build.find_cxx(), "-shared", "-fPIC", "-x", "c++", "-o", path, "-"],
+                   input=f'extern "C" {{\n{body}}}\n', text=True, check=True, timeout=120)
+
+
+def _get(port: int, path: str) -> str:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return r.read().decode()
+
+
+def _wait_for(what: str, fn, timeout_s: float = NATIVE_TIMEOUT_S):
+    """``fn()``'s first truthy value within ``timeout_s``; raises after."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        try:
+            got = fn()
+        except OSError:
+            got = None
+        if got:
+            return got
+        time.sleep(0.05)
+    raise RuntimeError(f"no {what} within {timeout_s} s")
+
+
+def check_native_table(gpuinfo, n) -> None:
+    """The native table against the ctypes table: identity fields equal,
+    counters present alike and in range; one call of each timed, in turns;
+    the native probe against the Python probe on every card's node."""
+    if not gpuinfo.native_available():
+        raise RuntimeError("libgpuinfo.so did not load")
+    native_lib = gpuinfo._native
+    times = {"native": [], "ctypes": []}
+    tables = {}
+    for _ in range(NATIVE_REPS):
+        for path in ("native", "ctypes"):
+            gpuinfo._native = native_lib if path == "native" else None
+            try:
+                t0 = time.perf_counter()
+                tables[path] = gpuinfo.chip_summary()
+                times[path].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                gpuinfo._native = native_lib
+    native, py = tables["native"], tables["ctypes"]
+    log(f"native chip table: {json.dumps(native)}")
+    if len(native) != n or any(c["source"] != "nvml" for c in native):
+        raise RuntimeError(f"the native table does not hold torch's {n} cards from NVML")
+    if [c["index"] for c in native] != [c["index"] for c in py]:
+        raise RuntimeError(f"native ids {[c['index'] for c in native]}, ctypes {[c['index'] for c in py]}")
+    for a, b in zip(native, py):
+        ident_a = {k: a[k] for k in IDENTITY_FIELDS if k in a}
+        ident_b = {k: b[k] for k in IDENTITY_FIELDS if k in b}
+        if ident_a != ident_b:
+            raise RuntimeError(f"card {a['index']}: native {ident_a} against ctypes {ident_b}")
+        if set(a) != set(b):
+            raise RuntimeError(f"card {a['index']}: native keys {sorted(a)}, ctypes {sorted(b)}")
+        for key, (lo, hi) in COUNTER_RANGES.items():
+            if key in a and not (lo <= a[key] <= hi and lo <= b[key] <= hi):
+                raise RuntimeError(f"card {a['index']}: {key} native {a[key]} ctypes {b[key]}")
+        if a.get("memory_used_bytes", 0) > a.get("memory_total_bytes", float("inf")):
+            raise RuntimeError(f"card {a['index']}: memory in use above the total")
+    log(f"native table == ctypes table on {IDENTITY_FIELDS} ({n} cards); "
+        f"one call, ms: native {[round(t, 3) for t in times['native']]}, "
+        f"ctypes {[round(t, 3) for t in times['ctypes']]}")
+    for c in native:
+        rc = native_lib.gpuinfo_device_probe_path(c["path"].encode())
+        py_alive = gpuinfo._py_probe_path(c["path"])
+        if (rc >= 0) != py_alive or not py_alive:
+            raise RuntimeError(f"{c['path']}: native probe {rc}, Python probe {py_alive}")
+        log(f"device probe {c['path']}: native {rc} (0 open, 1 busy or denied), Python {py_alive}")
+
+
+def check_smoke(smoke, tmp, n) -> None:
+    """gpu_smoke against torch and nvidia-smi; an empty device root exits 2
+    where NVML does not answer (with NVML answering, its cards stand under
+    any root)."""
+    smi = _smi_cards()
+    proc = subprocess.run([smoke, "--json"], capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"gpu_smoke exited {proc.returncode}: {proc.stderr}")
+    table = json.loads(proc.stdout)
+    names = sorted(c.get("name", "") for c in table)
+    if len(table) != n or len(smi) != n or names != sorted(name for name, _ in smi):
+        raise RuntimeError(f"gpu_smoke's {names} against torch's {n} and nvidia-smi's {smi}")
+    log(f"gpu_smoke --json: rc 0, {len(table)} cards {names} == nvidia-smi and torch")
+    empty = os.path.join(tmp, "empty-dev")
+    os.makedirs(empty)
+    stub = os.path.join(tmp, "nvml-down", "libnvidia-ml.so.1")
+    nvml_down_stub(stub)
+    down = subprocess.run([smoke, "--dev-root", empty, "--json"], capture_output=True, text=True,
+                          timeout=60, env={**os.environ, "NVML_LIBRARY": stub})
+    if down.returncode != 2 or json.loads(down.stdout) != []:
+        raise RuntimeError(f"gpu_smoke on an empty root without NVML: rc {down.returncode} {down.stdout}")
+    up = subprocess.run([smoke, "--dev-root", empty], capture_output=True, text=True, timeout=60)
+    log(f"gpu_smoke --dev-root <empty>: rc 2 [] where NVML does not answer; with NVML "
+        f"rc {up.returncode}: {up.stdout.splitlines()[0] if up.stdout else up.stderr}")
+
+
+def check_hostengine(gpuinfo, tmp, n) -> float:
+    """``python -m tpu_operator_torch.metricsd --port 0`` execs the
+    hostengine, which merges a side file the port's sampler wrote on
+    cuda:0 and drops a stale one; with ``--no-native`` the Python daemon
+    serves. Returns the median /json GET in ms."""
+    import select
+    import threading
+
+    from tpu_operator_torch.metricsd.daemon import MetricsDaemon
+
+    sample, drop = os.path.join(tmp, "sample.json"), os.path.join(tmp, "run", "metricsd.json")
+    sampler = MetricsDaemon(own_chip=True, interval_s=3600.0)
+    thread = threading.Thread(target=sampler.run_sampler, args=(sample,))
+    thread.start()
+    try:
+        _wait_for("side file from the sampler", lambda: os.path.exists(sample), 120)
+    finally:
+        sampler.stop()
+        thread.join(timeout=60)
+    with open(sample) as f:
+        side = json.load(f)
+    utils = [c.get("tensorcore_util") for c in side["chips"]]
+    if not all(u is not None and 0 < u <= 100 for u in utils):
+        raise RuntimeError(f"the sampler's tensorcore_util out of (0, 100]: {side}")
+    log(f"sampler on cuda:0 wrote {json.dumps(side)}")
+
+    err = open(os.path.join(tmp, "metricsd.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_operator_torch.metricsd", "--port", "0", "--drop-file", drop,
+         "--sample-file", sample, "--interval", "0.2"],
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        if not select.select([proc.stdout], [], [], NATIVE_TIMEOUT_S)[0]:
+            raise RuntimeError("the hostengine printed no port")
+        line = proc.stdout.readline()
+        m = re.search(r"gpu-metricsd listening on port (\d+)", line)
+        if not m:
+            raise RuntimeError(f"no hostengine port line: {line!r}")
+        port = int(m.group(1))
+        snap = _wait_for("merged sample", lambda: (lambda d: d if d.get("sample") else None)(
+            json.loads(_get(port, "/json"))))
+        if snap["source"] != "gpu-metricsd-native" or snap["sample"] != side:
+            raise RuntimeError(f"the hostengine did not serve the merged side file: {snap}")
+        if [c["index"] for c in snap["chips"]] != [c["index"] for c in gpuinfo.chip_summary()]:
+            raise RuntimeError(f"the hostengine's cards are not the chip table's: {snap['chips']}")
+        text = _get(port, "/metrics")
+        for c in snap["chips"]:
+            for want in (f'gpu_chip_present{{chip="{c["index"]}",source="nvml"}} 1',
+                         f'gpu_tensorcore_utilization_percent{{chip="{c["index"]}",source="sampler"}}'):
+                if want not in text:
+                    raise RuntimeError(f"/metrics lacks {want!r}:\n{text}")
+        log(f"metricsd --port 0 exec'd the hostengine ({line.strip()}): /json source "
+            f"{snap['source']}, {len(snap['chips'])} cards, sample merged")
+        log("hostengine /metrics:\n" + "\n".join(
+            "  " + ln for ln in text.splitlines() if not ln.startswith("#")))
+        gets = []
+        for _ in range(NATIVE_REPS):
+            t0 = time.perf_counter()
+            _get(port, "/json")
+            gets.append((time.perf_counter() - t0) * 1e3)
+        dropped = gpuinfo.native_metrics(drop)
+        if dropped.get("source") != "gpu-metricsd-native" or "sample" not in dropped:
+            raise RuntimeError(f"the drop file through libgpuinfo: {dropped}")
+        with open(sample, "w") as f:
+            json.dump({**side, "ts": time.time() - 3600}, f)
+        _wait_for("sample_fresh 0", lambda: "gpu_metricsd_sample_fresh 0" in _get(port, "/metrics"))
+        if "sample" in json.loads(_get(port, "/json")):
+            raise RuntimeError("a stale side file stayed in /json")
+        log(f"stale side file: gpu_metricsd_sample_fresh 0; /json GET ms {[round(g, 3) for g in gets]}; "
+            f"drop file read through libgpuinfo")
+        t0 = time.perf_counter()
+        proc.terminate()
+        rc = proc.wait(timeout=10)
+        log(f"hostengine stopped by SIGTERM in {time.perf_counter() - t0:.3f} s, rc {rc}")
+        if rc != 0:
+            raise RuntimeError(f"the hostengine exited {rc} on SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_operator_torch.metricsd", "--no-native", "--port", str(port),
+         "--drop-file", drop, "--sample-file", sample, "--interval", "0.2"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        served = _wait_for("the Python daemon", lambda: (lambda d: d if d.get("chips") else None)(
+            json.loads(_get(port, "/json"))), 60)
+        if served["source"] != "gpu-metricsd" or len(served["chips"]) != n:
+            raise RuntimeError(f"--no-native did not serve from Python: {served}")
+        log(f"metricsd --no-native: the Python daemon served {len(served['chips'])} cards")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return sorted(gets)[len(gets) // 2]
+
+
+def check_chain() -> None:
+    """run_telemetry_chain with the sampler's reading while products run on
+    cuda:0: ok, tensorcore_util from the sampler, duty cycle from NVML."""
+    import threading
+
+    from tpu_operator_torch.metricsd.chain import run_telemetry_chain
+    from tpu_operator_torch.metricsd.daemon import MetricsDaemon
+
+    sample = MetricsDaemon(own_chip=True)._sample_duty_cycle()
+    if not sample:
+        raise RuntimeError("the sampler gave no reading")
+    a = torch.randn(8192, 8192, dtype=torch.bfloat16, device="cuda:0")
+    b, c = torch.randn_like(a), torch.empty_like(a)
+    stop = threading.Event()
+
+    def load():
+        torch.cuda.set_device(a.device)  # a new thread has no current context
+        while not stop.is_set():
+            for _ in range(8):
+                torch.mm(a, b, out=c)
+            torch.cuda.synchronize()
+
+    thread = threading.Thread(target=load)
+    thread.start()
+    try:
+        time.sleep(BUSY_S)
+        t0 = time.perf_counter()
+        out = run_telemetry_chain(sample)
+        wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    log(f"telemetry chain in {wall:.2f} s under torch.mm on cuda:0: {json.dumps(out)}")
+    if not out["ok"]:
+        raise RuntimeError(f"the telemetry chain failed: {out.get('error')}")
+    if out["sources"]["tensorcore_util_percent"] != "sampler":
+        raise RuntimeError("tensorcore_util did not come from the sampler")
+    if not (out["duty_cycle_percent"] > 0 and out["sources"]["duty_cycle_percent"] == "nvml"):
+        raise RuntimeError("the duty cycle did not read above 0 from NVML")
+
+
+def phase_native() -> None:
+    """The native programs on the card (phase 9); raises on any miss."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch.native import build as native_build
+    from tpu_operator_torch.native import gpuinfo
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    n = torch.cuda.device_count()
+    info = native_build.build()
+    log(f"native: {native_build.cxx_version()}; built={info['built']} in {info['seconds']:.2f} s: "
+        f"{sorted(info['paths'])} in {info['dir']}")
+    with tempfile.TemporaryDirectory(prefix="cs9-") as tmp:
+        t0 = time.perf_counter()
+        check_smoke(info["paths"][native_build.SMOKE_NAME], tmp, n)
+        log(f"phase 9 smoke: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        check_native_table(gpuinfo, n)
+        log(f"phase 9 chip table: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        get_ms = check_hostengine(gpuinfo, tmp, n)
+        log(f"phase 9 hostengine: {time.perf_counter() - t0:.2f} s; median /json GET {get_ms:.3f} ms")
+    t0 = time.perf_counter()
+    check_chain()
+    log(f"phase 9 chain: {time.perf_counter() - t0:.2f} s")
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the native programs' phase launched kernels of the package: {launched}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"native programs on: {smi.stdout.strip() or smi.stderr.strip()}; no kernel of the package "
+        f"launched; phase 9 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -1948,6 +2274,7 @@ def main() -> int:
     phase_node_agents()
     phase_device_stack()
     phase_node_operands()
+    phase_native()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

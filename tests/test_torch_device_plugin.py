@@ -51,6 +51,7 @@ NODE = "gpu-node-1"
 def no_native(monkeypatch):
     monkeypatch.setattr(tpuinfo, "_load", lambda: None)
     monkeypatch.setattr(gpuinfo, "_load", lambda: None)
+    monkeypatch.setattr(gpuinfo, "_load_native", lambda: None)
 
 
 @pytest.fixture()
@@ -670,6 +671,7 @@ for mod in ("tpu_operator_torch", "tpu_operator_torch.workloads.topology",
     importlib.import_module(mod)
 from tpu_operator_torch.native import gpuinfo
 gpuinfo._load = lambda: None
+gpuinfo._load_native = lambda: None
 from tpu_operator_torch.plugin.server import GPUDevicePluginServicer
 s = GPUDevicePluginServicer(dev_root={dev_roots[1]!r}, poll_interval_s=0.01)
 first = next(s.watch())

@@ -41,6 +41,7 @@ NAMES = {ref_ex.ALL_METRICS[k][0]: ex.ALL_METRICS[k][0] for k in ex.ALL_METRICS}
 def no_native(monkeypatch):
     monkeypatch.setattr(tpuinfo, "_load", lambda: None)
     monkeypatch.setattr(gpuinfo, "_load", lambda: None)
+    monkeypatch.setattr(gpuinfo, "_load_native", lambda: None)
 
 
 @pytest.fixture()

@@ -19,6 +19,7 @@ def no_native(monkeypatch):
     """Both probes on their Python paths: no libtpuinfo, no NVML."""
     monkeypatch.setattr(tpuinfo, "_load", lambda: None)
     monkeypatch.setattr(gpuinfo, "_load", lambda: None)
+    monkeypatch.setattr(gpuinfo, "_load_native", lambda: None)
 
 
 def _mapped(name: str) -> str:
@@ -173,6 +174,7 @@ def test_loader_without_nvml_reads_sysfs(monkeypatch, tmp_path):
     """No libnvidia-ml.so.1 on the host: the loader finds nothing and the
     table has the sysfs shape with source "sysfs"."""
     monkeypatch.undo()  # the real loader
+    monkeypatch.setattr(gpuinfo, "_load_native", lambda: None)
     monkeypatch.setattr(gpuinfo, "_lib", None)
     monkeypatch.setattr(gpuinfo, "_loaded", False)
     monkeypatch.setattr(gpuinfo, "NVML_NAMES", ("libnvidia-ml-absent.so.1",))

@@ -33,6 +33,7 @@ NS = "tpu-operator"
 def no_native(monkeypatch):
     monkeypatch.setattr(tpuinfo, "_load", lambda: None)
     monkeypatch.setattr(gpuinfo, "_load", lambda: None)
+    monkeypatch.setattr(gpuinfo, "_load_native", lambda: None)
 
 
 @pytest.fixture(autouse=True)

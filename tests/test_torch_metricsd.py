@@ -24,6 +24,7 @@ from tpu_operator_torch.workloads.topology import PEAK_BF16_TFLOPS
 def no_native(monkeypatch):
     monkeypatch.setattr(tpuinfo, "_load", lambda: None)
     monkeypatch.setattr(gpuinfo, "_load", lambda: None)
+    monkeypatch.setattr(gpuinfo, "_load_native", lambda: None)
 
 
 @pytest.fixture()

@@ -31,6 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def no_native(monkeypatch):
     monkeypatch.setattr(tpuinfo, "_load", lambda: None)
     monkeypatch.setattr(gpuinfo, "_load", lambda: None)
+    monkeypatch.setattr(gpuinfo, "_load_native", lambda: None)
 
 
 @pytest.mark.parametrize(

@@ -183,6 +183,7 @@ def test_driver_component_passes_on_the_install(tmp_path, monkeypatch):
     passes on that root; after ``uninstall`` it fails."""
     monkeypatch.setenv(devchar.DISABLE_ENV, "true")
     monkeypatch.setattr(comp.gpuinfo, "_load", lambda: None)
+    monkeypatch.setattr(comp.gpuinfo, "_load_native", lambda: None)
     dev = tmp_path / "dev"
     dev.mkdir()
     for name in ("nvidia0", "nvidiactl"):

@@ -56,6 +56,7 @@ CONFIGS = {
 def no_native(monkeypatch):
     monkeypatch.setattr(tpuinfo, "_load", lambda: None)
     monkeypatch.setattr(gpuinfo, "_load", lambda: None)
+    monkeypatch.setattr(gpuinfo, "_load_native", lambda: None)
 
 
 def _files(root, client_label_key):

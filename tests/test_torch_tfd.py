@@ -35,6 +35,7 @@ H100 = "NVIDIA H100 80GB HBM3"
 def no_native(monkeypatch):
     monkeypatch.setattr(tpuinfo, "_load", lambda: None)
     monkeypatch.setattr(gpuinfo, "_load", lambda: None)
+    monkeypatch.setattr(gpuinfo, "_load_native", lambda: None)
 
 
 @pytest.fixture()

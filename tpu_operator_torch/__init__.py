@@ -14,7 +14,9 @@ NCCL, one card a rank, or gloo on the CPU; it launches none of the
 package's kernels. The node agents (the validator's host checks and
 workload pods, the node-status exporter in ``validator/metrics.py``, the
 metrics daemon in ``metricsd/``) read the card through ``native/gpuinfo.py``
-(NVML, else the device nodes and sysfs) and launch none either, nor do the
+(the native library ``libgpuinfo.so`` where ``native/build.py`` built it,
+else NVML through ``ctypes``; without NVML the device nodes and sysfs; the
+daemon hands serving to the native hostengine) and launch none either, nor do the
 agents that advertise the cards to the kubelet: the CDI spec and its
 runtime wire (``plugin/cdi.py``, ``operands/runtime_wire.py``), the device
 plugin (``plugin/``, over the kubelet's gRPC API) and feature discovery

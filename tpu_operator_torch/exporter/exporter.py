@@ -19,7 +19,8 @@ series; NVML's counters map onto them:
   tensorcore_util ← the metrics daemon's sampler only
 
 Every series carries its provenance in a ``source`` label: ``nvml`` for
-NVML's readings, ``devfs`` for facts that only prove presence (the chip
+NVML's readings, also where the native hostengine serves them inside its
+chip entries, ``devfs`` for facts that only prove presence (the chip
 table's sysfs path), ``spec`` for nameplate values and ``sampler`` for the
 card-owning sampler's. ``collect_values`` builds the values and the series
 set without ``prometheus_client``, which only ``Exporter`` imports.
@@ -130,9 +131,12 @@ def collect_values(
     for chip in data.get("chips", []):
         cid = str(chip.get("index", 0))
         key_sources = chip.get("_sources", {}) or {}
+        # the native hostengine embeds the chip table's entries, each naming
+        # its backend; its payload's own source names the hostengine
+        chip_source = "nvml" if chip.get("source") == "nvml" else backend_source
         values = {}
         for key in enabled:
-            source = key_sources.get(key, backend_source)
+            source = key_sources.get(key, chip_source)
             if key == "present":
                 values[key] = float(chip.get("present", 1))
                 source = key_sources.get(key, "devfs")

@@ -1,6 +1,12 @@
 """gpu-metricsd: the standalone metrics daemon (the DCGM hostengine slot).
 
-The counterpart of ``tpu_operator/metricsd/daemon.py``. The daemon
+The counterpart of ``tpu_operator/metricsd/daemon.py``. ``main`` hands
+serving to the C++ hostengine (``native/csrc/gpu_metricsd.cpp``, built by
+``native/build.py``) where one is found, as the reference hands it to
+``native/tpu_metricsd.cpp``: the hostengine reads the chip table through
+libgpuinfo, merges the sampler's side file and serves ``/json`` and
+``/metrics`` on :5555. This Python daemon serves where no hostengine is
+found, with ``--no-native``, and with ``--own-chip``, where it
 
 * collects the cards' facts from the chip table (``native/gpuinfo.py``:
   presence, NUMA node),
@@ -9,10 +15,8 @@ The counterpart of ``tpu_operator/metricsd/daemon.py``. The daemon
 * publishes to the ``/run/tpu/metricsd.json`` drop-file and over HTTP on
   :5555, the hostengine's port.
 
-``--sampler-only`` runs just the card-owning sampler, which writes a side
-file that a serving daemon merges. The reference hands serving to its C++
-hostengine (``native/tpu_metricsd.cpp``) where one is built; that has no
-port yet, so this daemon always serves itself.
+``--sampler-only`` runs just the card-owning sampler, which writes the side
+file that a serving daemon, native or not, merges.
 """
 
 from __future__ import annotations
@@ -20,11 +24,13 @@ from __future__ import annotations
 import json
 import logging
 import os
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from tpu_operator_torch.native import build as native_build
 from tpu_operator_torch.native import gpuinfo
 
 log = logging.getLogger("gpu-metricsd")
@@ -32,6 +38,7 @@ log = logging.getLogger("gpu-metricsd")
 DROP_FILE = "/run/tpu/metricsd.json"
 SAMPLE_FILE = "/run/tpu/metricsd-sample.json"
 DEFAULT_PORT = 5555
+INSTALLED_NATIVE = "/usr/local/bin/gpu-metricsd-native"
 SAMPLE_SIZE = 2048  # the timed product is SAMPLE_SIZE² bf16, 2·SAMPLE_SIZE³ FLOPs
 
 
@@ -42,6 +49,37 @@ def _write_json(path: str, payload: dict) -> None:
     with open(tmp, "w") as f:
         json.dump(payload, f)
     os.replace(tmp, path)
+
+
+def find_native_binary() -> Optional[str]:
+    """The C++ hostengine: ``GPU_METRICSD_NATIVE``, then the installed
+    ``/usr/local/bin/gpu-metricsd-native``, then the build of the current
+    source hash; None where none is an executable file. Never compiles."""
+    explicit = os.environ.get("GPU_METRICSD_NATIVE")
+    candidates = [explicit] if explicit else []
+    candidates += [INSTALLED_NATIVE, str(native_build.build_dir() / native_build.METRICSD_NAME)]
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return os.path.abspath(c)
+    return None
+
+
+def exec_native(binary: str, args) -> int:
+    """Replace this process with the C++ hostengine, with the reference's
+    arguments."""
+    cmd = [
+        binary,
+        "--port", str(args.port),
+        "--dev-root", args.dev_root,
+        "--drop-file", args.drop_file,
+        "--sample-file", args.sample_file,
+        "--interval", str(args.interval),
+    ]
+    log.info("delegating to the native hostengine: %s", " ".join(cmd))
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.execv(binary, cmd)
+    return 1  # unreachable
 
 
 def timed_product_s(n: int = SAMPLE_SIZE) -> float:
@@ -233,6 +271,11 @@ def main(argv=None) -> int:
         action="store_true",
         help="run only the card-owning sampler writing --sample-file",
     )
+    p.add_argument(
+        "--no-native",
+        action="store_true",
+        help="never delegate serving to the C++ hostengine",
+    )
     args = p.parse_args(argv)
     daemon = MetricsDaemon(
         dev_root=args.dev_root,
@@ -244,6 +287,10 @@ def main(argv=None) -> int:
     if args.sampler_only:
         daemon.run_sampler(args.sample_file)
         return 0
+    if not args.no_native and not args.own_chip:
+        native = find_native_binary()
+        if native:
+            return exec_native(native, args)
     if args.own_chip:
         from tpu_operator_torch.device import resolve_device
 

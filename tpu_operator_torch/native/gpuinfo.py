@@ -2,13 +2,16 @@
 
 The counterpart of ``tpu_operator/native/tpuinfo.py`` and the enumeration
 of ``native/libtpuinfo.cpp``, with the same native-or-Python split
-(``tpuinfo.py:1-8``): where the host driver ships ``libnvidia-ml.so.1``,
-NVML is loaded through ``ctypes`` and gives each card's name, UUID, PCI
-bus id, power limit, memory, utilization, temperature and MIG mode
-(``source: "nvml"``); without it the table comes from the device nodes,
-``/proc/driver/nvidia/gpus`` and sysfs (``source: "sysfs"``). Both give
-the same data shape, so callers never branch; ``source`` says which one
-answered.
+(``tpuinfo.py:1-8``). Where ``libgpuinfo.so`` (``csrc/libgpuinfo.cpp``,
+built by ``native/build.py``) loads, it answers: it reaches NVML itself
+through ``dlopen`` and falls to the device nodes and sysfs as the Python
+path does. Without it, NVML is loaded here through ``ctypes`` where the
+host driver ships ``libnvidia-ml.so.1``. Either way NVML gives each card's
+name, UUID, PCI bus id, power limit, memory, utilization, temperature and
+MIG mode (``source: "nvml"``); without NVML the table comes from the device
+nodes, ``/proc/driver/nvidia/gpus`` and sysfs (``source: "sysfs"``). Every
+path gives the same table, so callers never branch; ``source`` says which
+backend answered and ``native_available()`` whether the library did.
 
 Three orders number the cards: NVML's index, the minor number of
 ``/dev/nvidiaN`` and CUDA's default ``FASTEST_FIRST``. A card's ``index``
@@ -21,10 +24,13 @@ from __future__ import annotations
 import ctypes
 import errno
 import glob
+import json
 import logging
 import os
 import re
 from typing import Dict, List, Optional
+
+from tpu_operator_torch.native import build as native_build
 
 log = logging.getLogger("gpuinfo")
 
@@ -89,8 +95,25 @@ NVML_SIGNATURES = {
     "nvmlDeviceGetMigMode": ([_HANDLE, _UINT_P, _UINT_P], ctypes.c_int),
 }
 
+# every entry of libgpuinfo.so: (argtypes, restype); the roots are
+# ``dev_root, proc_root, sysfs``, and a JSON entry writes into the caller's
+# buffer and returns 0, -2 for no buffer or -3 for a short one
+_ROOTS = [ctypes.c_char_p] * 3
+NATIVE_SIGNATURES = {
+    "gpuinfo_chip_count": (_ROOTS, ctypes.c_int),
+    "gpuinfo_summary_json": (_ROOTS + [ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
+    "gpuinfo_metrics_json": (_ROOTS + [ctypes.c_char_p] * 2 + [ctypes.c_int], ctypes.c_int),
+    "gpuinfo_device_probe_path": ([ctypes.c_char_p], ctypes.c_int),
+}
+INSTALLED_LIB = "/usr/local/lib/libgpuinfo.so"
+NATIVE_SHORT_BUFFER = -3
+NATIVE_BUF_BYTES = 16384  # the first buffer; a short one is retried 4x larger
+NATIVE_BUF_MAX = 1 << 26
+
 _lib = None
 _loaded = False
+_native = None
+_native_loaded = False
 
 
 class NvmlError(RuntimeError):
@@ -117,6 +140,54 @@ def _load():
         _lib = lib
         return _lib
     return None
+
+
+def _load_native():
+    """``libgpuinfo.so``, once a process: ``LIBGPUINFO_PATH``, then the
+    build of the current source hash (``native/build.py``), then
+    ``/usr/local/lib``; None where none loads. Loading never compiles."""
+    global _native, _native_loaded
+    if _native_loaded:
+        return _native
+    _native_loaded = True
+    candidates = (
+        os.environ.get("LIBGPUINFO_PATH", ""),
+        str(native_build.build_dir() / native_build.LIB_NAME),
+        INSTALLED_LIB,
+    )
+    for path in candidates:
+        if not path or not os.path.exists(path):
+            continue
+        try:
+            lib = ctypes.CDLL(path)
+            for fn, (argtypes, restype) in NATIVE_SIGNATURES.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+        except (OSError, AttributeError) as e:
+            log.info("libgpuinfo not usable from %s: %s", path, e)
+            continue
+        _native = lib
+        return _native
+    return None
+
+
+def native_available() -> bool:
+    """Whether ``libgpuinfo.so`` answers the chip table."""
+    return _load_native() is not None
+
+
+def _native_json(fn, *args: str):
+    """The JSON a libgpuinfo entry writes, with a larger buffer after a
+    short one."""
+    size = NATIVE_BUF_BYTES
+    while True:
+        buf = ctypes.create_string_buffer(size)
+        rc = fn(*(a.encode() for a in args), buf, size)
+        if rc == 0:
+            return json.loads(buf.value.decode())
+        if rc != NATIVE_SHORT_BUFFER or size >= NATIVE_BUF_MAX:
+            raise RuntimeError(f"libgpuinfo: {fn.__name__} returned {rc} with {size} bytes")
+        size *= 4
 
 
 def normalize_bus_id(bus_id: str) -> str:
@@ -245,6 +316,9 @@ def chip_summary(
     numa_node?, vendor?, pci_class?}``, with ``power_limit_mw``,
     ``memory_*_bytes``, ``utilization_*``, ``temperature_c`` and
     ``mig_mode``/``mig_mode_pending`` (1 enabled) where NVML answers."""
+    native = _load_native()
+    if native is not None:
+        return _native_json(native.gpuinfo_summary_json, dev_root, proc_root, sysfs)
     lib = _load()
     if lib is not None:
         cards = _nvml_chips(lib, dev_root, sysfs)
@@ -294,6 +368,18 @@ def metrics(dev_root: str = "/dev", chips: Optional[List[dict]] = None) -> dict:
     }
 
 
+def native_metrics(drop_file: str, dev_root: str = "/dev", proc_root: str = PROC_GPUS,
+                   sysfs: str = SYSFS_PCI) -> dict:
+    """What a file-based reader sees through ``libgpuinfo.so``: the metrics
+    hostengine's drop file verbatim where it holds a JSON object, else
+    ``metrics``'s counters over the chip table. Raises where the library is
+    not loaded."""
+    native = _load_native()
+    if native is None:
+        raise RuntimeError("libgpuinfo.so is not loaded")
+    return _native_json(native.gpuinfo_metrics_json, dev_root, proc_root, sysfs, drop_file)
+
+
 def device_probe_path(path: str, stat_only: bool = False) -> bool:
     """Liveness (not existence) of one device node: open and close it
     read-only and non-blocking. True when the open succeeds, the device is
@@ -305,7 +391,8 @@ def device_probe_path(path: str, stat_only: bool = False) -> bool:
     Takes the device PATH, never a positional index: enumeration order
     shifts when a node disappears, and health must not be given to the
     wrong card. VFIO groups allow one open file, so they are only
-    stat'ed (``tpuinfo.py:146-154``)."""
+    stat'ed (``tpuinfo.py:146-154``). ``libgpuinfo.so`` answers where it
+    is loaded, with the same rules."""
     if not path:
         return False
     if stat_only or os.sep + "vfio" + os.sep in path:
@@ -314,6 +401,14 @@ def device_probe_path(path: str, stat_only: bool = False) -> bool:
             return True
         except OSError:
             return False
+    native = _load_native()
+    if native is not None:
+        return native.gpuinfo_device_probe_path(path.encode()) >= 0
+    return _py_probe_path(path)
+
+
+def _py_probe_path(path: str) -> bool:
+    """``device_probe_path``'s open, in Python."""
     try:
         fd = os.open(path, os.O_RDONLY | os.O_NONBLOCK)
         os.close(fd)
