@@ -96,16 +96,18 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    or more cards 2 with one must-include), and ``Allocate`` with CDI
    names of the spec's devices and an env naming the cards by UUID; a
    process with that env sees exactly the allocated cards' UUIDs (one
-   allocation, two with two or more cards); the ``plugin`` component
-   passes on the advertised capacity (``plugin-ready`` 1 in the
-   node-status readiness); feature discovery's product, count, memory and
-   driver-version labels equal ``nvidia-smi``'s; the plugin's
+   allocation, two with two or more cards); the port's
+   ``KubeletDeviceManager`` registers a fresh plugin over gRPC and writes
+   the node's capacity into a ``FakeClient`` node (without grpc the script
+   writes the advertisement's), and the ``plugin`` component passes on it
+   (``plugin-ready`` 1 in the node-status readiness); feature discovery's
+   product, count, memory and driver-version labels equal ``nvidia-smi``'s; the plugin's
    first-advertisement time, each ``Allocate`` round trip and the phase's
    wall time are logged; this path launches none of K1-K7c;
 8. (after 7, before 4) the node's partition and telemetry operands, on
    every card, in a temporary directory: the slice manager on a node that
-   feature discovery labelled from NVML's chip table (an in-script store
-   with ``resourceVersion`` and a 409 on a stale write), one slice a card
+   feature discovery labelled from NVML's chip table (the port's
+   ``FakeClient``, whose stale write answers 409), one slice a card
    and, with two or more cards, 1x2: each reconcile ``success``, the
    subslices cover exactly the chip table's minors inside one NVLink
    domain each, the CDI composites hold exactly their cards' nodes and
@@ -120,10 +122,11 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    libraries into a temporary driver root (the ``driver`` component
    passes on it, ``VERSION`` is NVML's version, after ``uninstall`` the
    component fails); the driver manager on the store (the pod that
-   requests a card evicted, the five barriers cleared); the vfio manager
+   requests a card evicted, the five barriers cleared; the same
+   ``FakeClient``); the vfio manager
    and the vm, vm-device and kata managers on fixture trees only, and the
    cards' MIG mode printed; this path launches none of K1-K7c;
-9. (after 8, before 4) the native programs, on every card: their build
+9. (after 8, before 10) the native programs, on every card: their build
    (``g++ --version`` and seconds logged); ``gpu_smoke --json`` exits 0
    with ``torch.cuda.device_count()`` cards whose names are
    ``nvidia-smi``'s, and exits 2 on an empty ``--dev-root`` with an NVML
@@ -141,6 +144,28 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    ``tensorcore_util`` from the sampler and ``duty_cycle`` above 0 from
    NVML (every series' source printed); the /json GET's ms and the
    phase's wall time logged; this path launches none of K1-K7c;
+10. (after 9, before 4) the control plane's foundation, under a
+   watchdog of ``CONTROL_PLANE_TIMEOUT_S``: ``python -m
+   tpu_operator_torch.cfg generate crd`` gives the generated CRD and
+   ``validate clusterpolicy`` passes the port's sample and fails (rc 1,
+   naming the field) a copy with an enum violated; KubeSim on loopback
+   registers the CRD, stores the sample created through the
+   ``RestClient`` as ``default_cr`` of it and answers the violated copy
+   with 422; the card's node, labelled by feature discovery (product,
+   count, memory and driver version equal to ``nvidia-smi``'s), joins
+   ``FLEET_NODES - 1`` simulated GPU nodes, a paged LIST (limit
+   ``LIST_PAGE``) returns every node once and a label-selector LIST the
+   card's node alone; the device plugin over the real cards registers over
+   gRPC with the port's ``KubeletDeviceManager``, which writes through a
+   ``RestClient`` into KubeSim, and a ``RestClient`` watch must deliver
+   capacity and allocatable equal to the chip table's card count
+   (``mark_unhealthy`` one less allocatable, ``mark_healthy`` back); the
+   ``plugin`` component passes over the ``RestClient``;
+   ``kubelet.allocate`` runs the kubelet's preference-then-Allocate
+   sequence and a process with the answer's env sees exactly that card;
+   the CR admission, paged-LIST, watch-event and phase times and the
+   card's name and power limit are logged; grpc is required (no plain-data
+   fallback); this path launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -267,6 +292,7 @@ BF16_ULP = 2.0**-7  # bf16 keeps 8 significant bits: one ulp is at most 2^-7 of 
 # phase 7: the device plugin's watchdog, and what a container with
 # Allocate's env sees (a product on each card, then the cards' UUIDs)
 PLUGIN_TIMEOUT_S = 120
+OPERANDS_NODE = "chip-smoke-node"  # the card's node in phases 7, 8 and 10
 CONTAINER_VIEW_SCRIPT = (
     "import json, torch; n = torch.cuda.device_count(); "
     "[torch.mm(torch.ones(64, 64, device=i), torch.ones(64, 64, device=i)).sum().item() "
@@ -1324,17 +1350,72 @@ class _PluginDriver:
             raise RuntimeError("the plugin's poller outlived stop()")
 
 
-class _NodeClient:
-    """The one node the kubelet's device manager writes, for the plugin
-    component's ``client.get``."""
+def container_view(got, envs, uuid) -> None:
+    """A process started with Allocate's env ``envs`` sees exactly the
+    allocated cards ``got`` (by UUID)."""
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CONTAINER_VIEW_SCRIPT],
+                          env={**os.environ, **envs}, capture_output=True, text=True, timeout=180)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the container view of {got} failed:\n{proc.stderr[-2000:]}")
+    count, seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    if count != len(got) or sorted(seen) != sorted(uuid[i] for i in got):
+        raise RuntimeError(f"allocated {got} ({[uuid[i] for i in got]}); the process saw "
+                           f"{count} cards {seen}")
+    log(f"container view of {got}: {count} card(s), {seen}, {time.perf_counter() - t1:.2f} s")
 
-    def __init__(self, node: dict):
-        self.node = node
 
-    def get(self, api_version, kind, name, namespace="", copy=False):
-        if (kind, name) != ("Node", self.node["metadata"]["name"]):
-            raise KeyError(f"{kind}/{name}")
-        return json.loads(json.dumps(self.node))
+def check_features(feats, n) -> None:
+    """Feature discovery's product, count, memory and driver-version labels
+    equal ``nvidia-smi``'s."""
+    from tpu_operator_torch import consts
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,memory.total,driver_version", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    rows = [[x.strip() for x in line.split(",")] for line in smi.stdout.strip().splitlines()]
+    want = {
+        consts.GPU_PRODUCT_LABEL: rows[0][0].replace(" ", "-"),
+        consts.GPU_COUNT_LABEL: str(n),
+        consts.GPU_MEMORY_LABEL: rows[0][1],
+        consts.DRIVER_VERSION_LABEL: rows[0][2],
+    }
+    got = {k: feats.get(k) for k in want}
+    if got != want or len(rows) != n:
+        raise RuntimeError(f"feature discovery {got} against nvidia-smi {want} ({len(rows)} rows)")
+
+
+def node_caps(client, name) -> tuple:
+    """(capacity, allocatable) of ``nvidia.com/gpu`` on a node."""
+    from tpu_operator_torch import consts
+
+    st = client.get("v1", "Node", name).get("status", {})
+    return st.get("capacity", {}).get(consts.GPU_RESOURCE), st.get("allocatable", {}).get(consts.GPU_RESOURCE)
+
+
+def kubelet_capacity(plugin, node_client, socket_dir: str, n: int) -> float:
+    """The port's kubelet registers a fresh plugin over the card over gRPC
+    and writes the node's capacity and allocatable into ``node_client``;
+    both must reach ``n`` within ``PLUGIN_TIMEOUT_S``. Returns the ms from
+    registration to the write."""
+    from tpu_operator_torch.kube import kubelet_sim
+
+    kubelet = kubelet_sim.KubeletDeviceManager(node_client, OPERANDS_NODE, socket_dir)
+    servicer = plugin.GPUDevicePluginServicer(dev_root="/dev", driver_root="/", poll_interval_s=0.2,
+                                              health_probe_interval_s=3600)
+    server = plugin.DevicePluginServer(servicer, socket_dir=socket_dir)
+    try:
+        kubelet.start()
+        server.start()
+        t0 = time.perf_counter()
+        server.register_with_kubelet(kubelet.kubelet_socket)
+        _wait_for("the kubelet's capacity", lambda: node_caps(node_client, OPERANDS_NODE) == (str(n),) * 2,
+                  PLUGIN_TIMEOUT_S)
+        return (time.perf_counter() - t0) * 1e3
+    finally:
+        server.stop()
+        kubelet.stop()
 
 
 def phase_device_stack() -> None:
@@ -1342,6 +1423,7 @@ def phase_device_stack() -> None:
     from tpu_operator_torch import _build
     from tpu_operator_torch import consts
     from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.kube.client import FakeClient
     from tpu_operator_torch.native import gpuinfo
     from tpu_operator_torch.operands import runtime_wire
     from tpu_operator_torch.plugin import server as plugin
@@ -1444,46 +1526,35 @@ def phase_device_stack() -> None:
 
         # 3. a container with Allocate's env sees exactly its cards
         for got, envs in allocations:
-            t1 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-c", CONTAINER_VIEW_SCRIPT],
-                                  env={**os.environ, **envs}, capture_output=True, text=True, timeout=180)
-            if proc.returncode != 0:
-                raise RuntimeError(f"the container view of {got} failed:\n{proc.stderr[-2000:]}")
-            count, seen = json.loads(proc.stdout.strip().splitlines()[-1])
-            if count != len(got) or sorted(seen) != sorted(uuid[i] for i in got):
-                raise RuntimeError(f"allocated {got} ({[uuid[i] for i in got]}); the process saw "
-                                   f"{count} cards {seen}")
-            log(f"container view of {got}: {count} card(s), {seen}, {time.perf_counter() - t1:.2f} s")
+            container_view(got, envs, uuid)
 
-        # 4. the plugin component on the capacity the advertisement gives
-        node = {"metadata": {"name": "chip-smoke-node", "labels": {}}, "status": {
-            "capacity": {consts.GPU_RESOURCE: str(len(advert))},
-            "allocatable": {consts.GPU_RESOURCE: str(sum(h == "Healthy" for h in advert.values()))},
-        }}
+        # 4. the plugin component on the node's capacity: the port's kubelet
+        # writes it into a FakeClient node from the plugin's advertisement
+        # over gRPC; without grpc the script writes the advertisement's
+        node_client = FakeClient([{"apiVersion": "v1", "kind": "Node",
+                                   "metadata": {"name": OPERANDS_NODE, "labels": {}}}])
+        if transport == "grpc":
+            kubelet_ms = kubelet_capacity(plugin, node_client, os.path.join(tmp, "kl"), n)
+            log(f"kubelet: the port's KubeletDeviceManager wrote capacity {n} {kubelet_ms:.1f} ms "
+                f"after the plugin registered")
+        else:
+            node = node_client.get("v1", "Node", OPERANDS_NODE)
+            node["status"] = {
+                "capacity": {consts.GPU_RESOURCE: str(len(advert))},
+                "allocatable": {consts.GPU_RESOURCE: str(sum(h == "Healthy" for h in advert.values()))},
+            }
+            node_client.update(node)
         status = comp.StatusFiles(status_dir)
-        info = comp.validate_plugin(status, _NodeClient(node), "chip-smoke-node", retries=1, sleep_s=0)
+        info = comp.validate_plugin(status, node_client, OPERANDS_NODE, retries=1, sleep_s=0)
         ready = NodeMetrics(status=status, driver_root="/", dev_root="/dev").status_pass()["ready"]
         if (info["capacity"], info["allocatable"]) != (n, n) or ready["plugin-ready"] != 1:
             raise RuntimeError(f"plugin component: {info}, readiness {ready}")
         log(f"plugin component: {json.dumps(info)}; node-status readiness {json.dumps(ready)}")
 
     # 5. feature discovery against nvidia-smi
-    feats = tfd.gather_features({"metadata": {"name": "chip-smoke-node", "labels": {}}},
+    feats = tfd.gather_features({"metadata": {"name": OPERANDS_NODE, "labels": {}}},
                                 dev_root="/dev", driver_root="/", env={})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,memory.total,driver_version", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    rows = [[x.strip() for x in line.split(",")] for line in smi.stdout.strip().splitlines()]
-    want = {
-        consts.GPU_PRODUCT_LABEL: rows[0][0].replace(" ", "-"),
-        consts.GPU_COUNT_LABEL: str(n),
-        consts.GPU_MEMORY_LABEL: rows[0][1],
-        consts.DRIVER_VERSION_LABEL: rows[0][2],
-    }
-    got = {k: feats.get(k) for k in want}
-    if got != want or len(rows) != n:
-        raise RuntimeError(f"feature discovery {got} against nvidia-smi {want} ({len(rows)} rows)")
+    check_features(feats, n)
     log(f"feature discovery: {json.dumps(feats)}; the four labels equal nvidia-smi's")
 
     launched = {k: v for k, v in _build.launches.items() if v}
@@ -1497,61 +1568,10 @@ def phase_device_stack() -> None:
 
 
 # phase 8: the node's operands
-OPERANDS_NODE = "chip-smoke-node"
 BUSY_S = 1.0  # the torch.mm load the busy exporter pass reads
 EXPORTED_NAMES = ("gpu_duty_cycle_percent", "gpu_memory_used_bytes", "gpu_memory_total_bytes",
                   "gpu_tensorcore_utilization_percent", "gpu_temperature_celsius", "gpu_present",
                   "gpu_nvlink_pairs_total")
-
-
-class _Store:
-    """The objects phase 8's operands read and write: Nodes and Pods by
-    name; a write bumps ``resourceVersion`` and a write from a stale read
-    answers 409, as the API server does; ``evict`` deletes a Pod."""
-
-    def __init__(self, objs):
-        self.objs, self.rv = {}, 0
-        for obj in objs:
-            self.create(obj)
-
-    @staticmethod
-    def _key(kind, name, namespace=""):
-        return kind, namespace or "", name
-
-    def create(self, obj):
-        obj = json.loads(json.dumps(obj))
-        self.rv += 1
-        obj["metadata"]["resourceVersion"] = str(self.rv)
-        meta = obj["metadata"]
-        self.objs[self._key(obj["kind"], meta["name"], meta.get("namespace", ""))] = obj
-        return json.loads(json.dumps(obj))
-
-    def get(self, api_version, kind, name, namespace="", copy=False):
-        from tpu_operator_torch.kube.client import NotFoundError
-
-        try:
-            return json.loads(json.dumps(self.objs[self._key(kind, name, namespace)]))
-        except KeyError:
-            raise NotFoundError(f"{kind} {namespace}/{name}") from None
-
-    def update(self, obj):
-        from tpu_operator_torch.kube.client import ConflictError
-
-        meta = obj["metadata"]
-        stored = self.objs[self._key(obj["kind"], meta["name"], meta.get("namespace", ""))]
-        if stored["metadata"]["resourceVersion"] != meta.get("resourceVersion"):
-            raise ConflictError(f"{obj['kind']}/{meta['name']}: stale resourceVersion")
-        return self.create(obj)
-
-    def list(self, api_version, kind, namespace=""):
-        return [json.loads(json.dumps(o)) for (k, ns, _), o in sorted(self.objs.items())
-                if k == kind and (not namespace or ns == namespace)]
-
-    def evict(self, name, namespace=""):
-        from tpu_operator_torch.kube.client import NotFoundError
-
-        if self.objs.pop(self._key("Pod", name, namespace), None) is None:
-            raise NotFoundError(f"Pod {namespace}/{name}")
 
 
 def check_slice_manager(tmp, chips, n) -> None:
@@ -1563,7 +1583,7 @@ def check_slice_manager(tmp, chips, n) -> None:
     tile the host fails."""
     from tpu_operator_torch import consts
     from tpu_operator_torch.discovery import tfd
-    from tpu_operator_torch.kube.client import ConflictError
+    from tpu_operator_torch.kube.client import ConflictError, FakeClient
     from tpu_operator_torch.plugin.manager import PluginManager
     from tpu_operator_torch.sliceman import slice_manager as sm
     from tpu_operator_torch.workloads import topology as topo
@@ -1572,7 +1592,7 @@ def check_slice_manager(tmp, chips, n) -> None:
     node = {"apiVersion": "v1", "kind": "Node", "metadata": {"name": OPERANDS_NODE, "labels": {}}}
     labels = tfd.gather_features(node, dev_root="/dev", driver_root="/", env={}, chips=chips)
     node["metadata"]["labels"] = {**labels, client_label: "true"}
-    store = _Store([node])
+    store = FakeClient([node])
     stale = store.get("v1", "Node", OPERANDS_NODE)
     store.update(store.get("v1", "Node", OPERANDS_NODE))
     try:
@@ -1803,6 +1823,7 @@ def check_driver_manager(tmp, comp) -> None:
     """``uninstall_gpu_driver`` on the store: the pod that requests a card
     is evicted, the one that requests nothing stays, and the five
     barriers are gone."""
+    from tpu_operator_torch.kube.client import FakeClient
     from tpu_operator_torch.operands import driver_manager
 
     def pod(name, resources):
@@ -1811,7 +1832,7 @@ def check_driver_manager(tmp, comp) -> None:
                              "ownerReferences": [{"kind": "Job", "name": name, "uid": name}]},
                 "spec": {"nodeName": OPERANDS_NODE, "containers": [{"resources": resources}]}}
 
-    store = _Store([pod("gpu-job", {"limits": {"nvidia.com/gpu": "1"}}), pod("cpu-job", {})])
+    store = FakeClient([pod("gpu-job", {"limits": {"nvidia.com/gpu": "1"}}), pod("cpu-job", {})])
     status = comp.StatusFiles(os.path.join(tmp, "manager"))
     for name in driver_manager.BARRIERS:
         status.write(name)
@@ -2235,6 +2256,221 @@ def phase_native() -> None:
         f"launched; phase 9 {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 10: the control plane's foundation
+CONTROL_PLANE_TIMEOUT_S = 300  # the phase's watchdog
+FLEET_NODES = 1000  # the reference's fleet axes (bench.py:840, :861)
+LIST_PAGE = 500  # client-go's pager default
+
+
+def check_cfg_cli(tmp, sample_path, crdgen) -> str:
+    """``gpuop-cfg generate crd`` gives the generated CRD, ``validate
+    clusterpolicy`` passes the sample and fails a copy with an enum
+    violated, naming the field. Returns the violated copy."""
+    import yaml
+
+    def cfg(*args):
+        return subprocess.run([sys.executable, "-m", "tpu_operator_torch.cfg", *args],
+                              capture_output=True, text=True, timeout=120)
+
+    gen = cfg("generate", "crd")
+    if gen.returncode != 0 or yaml.safe_load(gen.stdout) != crdgen.build_crd():
+        raise RuntimeError(f"gpuop-cfg generate crd: rc={gen.returncode}\n{gen.stderr[-2000:]}")
+    ok = cfg("validate", "clusterpolicy", "--input", sample_path)
+    if ok.returncode != 0:
+        raise RuntimeError(f"gpuop-cfg refused the sample: rc={ok.returncode}\n{ok.stderr[-2000:]}")
+    with open(sample_path) as f:
+        bad = yaml.safe_load(f)
+    bad["spec"]["operator"]["defaultRuntime"] = "rkt"
+    bad_path = os.path.join(tmp, "bad-clusterpolicy.yaml")
+    with open(bad_path, "w") as f:
+        yaml.safe_dump(bad, f)
+    no = cfg("validate", "clusterpolicy", "--input", bad_path)
+    if no.returncode != 1 or "spec.operator.defaultRuntime" not in no.stderr:
+        raise RuntimeError(f"gpuop-cfg on an enum violation: rc={no.returncode}, {no.stderr[-2000:]!r}")
+    log(f"gpuop-cfg: generate crd rc=0; validate sample rc=0; enum violated rc=1: {no.stderr.strip()}")
+    return bad
+
+
+def phase_control_plane() -> None:
+    """The control plane's foundation on the card machine (phase 10): the
+    chain card -> plugin -> kubelet -> API server -> validator; raises on
+    any miss."""
+    import queue
+    import threading
+
+    import grpc
+
+    from tpu_operator_torch import _build
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.api.v1 import clusterpolicy_types as cpt
+    from tpu_operator_torch.cfg import crdgen, schema_validate
+    from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.kube import kubelet_sim, kubesim
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.plugin import server as plugin
+    from tpu_operator_torch.validator import components as comp
+
+    import yaml
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    n = torch.cuda.device_count()
+    chips = gpuinfo.chip_summary()
+    uuid = {str(c["index"]): c.get("uuid") for c in chips}
+    if len(chips) != n or any(c["source"] != "nvml" or not c.get("uuid") for c in chips):
+        raise RuntimeError(f"the chip table does not name torch's {n} cards by UUID: {chips}")
+    ids = sorted(uuid, key=int)
+    sample_path = os.path.join(os.path.dirname(cpt.__file__), "sample_clusterpolicy.yaml")
+    log(f"control plane: grpc {grpc.__version__}, PyYAML {yaml.__version__}")
+    faulthandler.dump_traceback_later(CONTROL_PLANE_TIMEOUT_S, exit=True)
+    stop = threading.Event()
+    events = queue.Queue()
+    with tempfile.TemporaryDirectory(prefix="cs10-") as tmp:
+        # 1. gpuop-cfg
+        bad = check_cfg_cli(tmp, sample_path, crdgen)
+        sim_server = kubesim.KubeSimServer(port=0).start()
+        kubelet = plugin_server = watcher = None
+        try:
+            # 2. the CRD and the sample through the RestClient; admission
+            c = kubesim.make_client(sim_server.port)
+            c.create(crdgen.build_crd())
+            with open(sample_path) as f:
+                sample = yaml.safe_load(f)
+            t0 = time.perf_counter()
+            stored = c.create(json.loads(json.dumps(sample)))
+            admit_ms = (time.perf_counter() - t0) * 1e3
+            want = json.loads(json.dumps(sample))
+            schema_validate.default_cr(crdgen.build_crd(), want)
+            if {k: v for k, v in stored.items() if k != "metadata"} != {k: v for k, v in want.items()
+                                                                       if k != "metadata"}:
+                raise RuntimeError(f"the stored ClusterPolicy is not the defaulted sample: {stored}")
+            bad["metadata"]["name"] = "bad"
+            try:
+                c.create(bad)
+                raise RuntimeError("KubeSim admitted a ClusterPolicy with an enum violated")
+            except RuntimeError as e:
+                if "422" not in str(e) or "defaultRuntime" not in str(e):
+                    raise
+            log(f"KubeSim on 127.0.0.1:{sim_server.port}: CRD registered; sample admitted in "
+                f"{admit_ms:.2f} ms and stored as default_cr(sample); the enum violation answered 422")
+
+            # 3. the card's node from feature discovery, then the fleet
+            labels = tfd.gather_features({"metadata": {"name": OPERANDS_NODE, "labels": {}}},
+                                         dev_root="/dev", driver_root="/", env={}, chips=chips)
+            check_features(labels, n)
+            labels["kubernetes.io/hostname"] = OPERANDS_NODE
+            c.create({"apiVersion": "v1", "kind": "Node", "metadata": {"name": OPERANDS_NODE, "labels": labels}})
+            t0 = time.perf_counter()
+            fleet = sim_server.sim.add_nodes(FLEET_NODES - 1)
+            join_s = time.perf_counter() - t0
+            c.list_page_size = lambda: LIST_PAGE
+            pages = []
+            request = c._request
+            c._request = lambda method, path, *a, **kw: pages.append(path) or request(method, path, *a, **kw)
+            t0 = time.perf_counter()
+            nodes = c.list("v1", "Node")
+            list_ms = (time.perf_counter() - t0) * 1e3
+            del c._request
+            names = [x["metadata"]["name"] for x in nodes]
+            if len(names) != FLEET_NODES or set(names) != set(fleet) | {OPERANDS_NODE}:
+                raise RuntimeError(f"the paged LIST gave {len(names)} nodes ({len(set(names))} distinct)")
+            t0 = time.perf_counter()
+            mine = c.list("v1", "Node", label_selector=f"kubernetes.io/hostname={OPERANDS_NODE}")
+            select_ms = (time.perf_counter() - t0) * 1e3
+            if [x["metadata"]["name"] for x in mine] != [OPERANDS_NODE]:
+                raise RuntimeError(f"the label-selector LIST gave {[x['metadata']['name'] for x in mine]}")
+            log(f"fleet: {FLEET_NODES - 1} nodes of {kubesim.HOST_CARDS} cards joined in {join_s:.2f} s; "
+                f"paged LIST (limit {LIST_PAGE}, {len(pages)} pages) of {len(names)} nodes, each once, in "
+                f"{list_ms:.1f} ms; label-selector LIST of the card's node in {select_ms:.2f} ms")
+
+            # 4. plugin -> kubelet -> API server, seen through a watch
+            def on_event(etype, obj):
+                if obj["metadata"]["name"] == OPERANDS_NODE:
+                    events.put((time.perf_counter(), obj.get("status", {})))
+
+            synced = threading.Event()
+            watcher = threading.Thread(target=kubesim.make_client(sim_server.port).watch,
+                                       args=("v1", "Node", on_event),
+                                       kwargs={"stop_event": stop, "timeout_s": 5, "on_sync": synced.set},
+                                       daemon=True)
+            watcher.start()
+            if not synced.wait(PLUGIN_TIMEOUT_S):
+                raise RuntimeError("the watch on the nodes did not sync")
+
+            def watched(alloc):
+                deadline = time.time() + PLUGIN_TIMEOUT_S
+                while time.time() < deadline:
+                    try:
+                        t, st = events.get(timeout=1)
+                    except queue.Empty:
+                        continue
+                    got = (st.get("capacity", {}).get(consts.GPU_RESOURCE),
+                           st.get("allocatable", {}).get(consts.GPU_RESOURCE))
+                    if got == (str(n), str(alloc)):
+                        return t
+                raise RuntimeError(f"no watch event with capacity {n} and allocatable {alloc} "
+                                   f"within {PLUGIN_TIMEOUT_S} s")
+
+            socket_dir = os.path.join(tmp, "k")
+            kubelet = kubelet_sim.KubeletDeviceManager(kubesim.make_client(sim_server.port), OPERANDS_NODE,
+                                                       socket_dir)
+            kubelet.start()
+            servicer = plugin.GPUDevicePluginServicer(dev_root="/dev", driver_root="/", poll_interval_s=0.2,
+                                                      health_probe_interval_s=3600)
+            plugin_server = plugin.DevicePluginServer(servicer, socket_dir=socket_dir)
+            plugin_server.start()
+            t0 = time.perf_counter()
+            plugin_server.register_with_kubelet(kubelet.kubelet_socket)
+            capacity_ms = (watched(n) - t0) * 1e3
+            log(f"kubelet: register_with_kubelet to the watched capacity {n} / allocatable {n} of "
+                f"{consts.GPU_RESOURCE} in KubeSim: {capacity_ms:.1f} ms")
+
+            # 5. the plugin component over the RestClient; Unhealthy and back
+            status = comp.StatusFiles(os.path.join(tmp, "validations"))
+            info = comp.validate_plugin(status, c, OPERANDS_NODE, retries=3, sleep_s=0.2)
+            if (info["capacity"], info["allocatable"]) != (n, n):
+                raise RuntimeError(f"plugin component over the RestClient: {info}")
+            t0 = time.perf_counter()
+            servicer.mark_unhealthy(ids[0])
+            down_ms = (watched(n - 1) - t0) * 1e3
+            t0 = time.perf_counter()
+            servicer.mark_healthy(ids[0])
+            up_ms = (watched(n) - t0) * 1e3
+            log(f"plugin component over the RestClient: {json.dumps(info)}; card {ids[0]} Unhealthy -> "
+                f"allocatable {n - 1} watched in {down_ms:.1f} ms, healthy again in {up_ms:.1f} ms")
+
+            # 6. the kubelet's admission sequence, and what the container sees
+            t0 = time.perf_counter()
+            resp = kubelet.allocate(consts.GPU_RESOURCE, 1)
+            alloc_ms = (time.perf_counter() - t0) * 1e3
+            cresp = resp.container_responses[0]
+            got = [d.name.split("=", 1)[1] for d in cresp.cdi_devices]
+            if len(got) != 1 or got[0] not in uuid:
+                raise RuntimeError(f"the kubelet's allocation named {[d.name for d in cresp.cdi_devices]}")
+            log(f"kubelet.allocate({consts.GPU_RESOURCE}, 1): card {got} in {alloc_ms:.2f} ms")
+            container_view(got, dict(cresp.envs), uuid)
+        finally:
+            stop.set()
+            if plugin_server is not None:
+                plugin_server.stop()
+            if kubelet is not None:
+                kubelet.stop()
+            sim_server.stop()
+            if watcher is not None:
+                watcher.join(30)
+            faulthandler.cancel_dump_traceback_later()
+        if watcher is not None and watcher.is_alive():
+            raise RuntimeError("the node watch outlived the phase")
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the control plane launched kernels of the package: {launched}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"control plane on: {smi.stdout.strip() or smi.stderr.strip()}; CR admission {admit_ms:.2f} ms, "
+        f"paged LIST of {FLEET_NODES} nodes {list_ms:.1f} ms, capacity watched {capacity_ms:.1f} ms after "
+        f"registration; no kernel of the package launched; phase 10 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -2275,6 +2511,7 @@ def main() -> int:
     phase_device_stack()
     phase_node_operands()
     phase_native()
+    phase_control_plane()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -37,6 +37,9 @@ from tpu_operator.plugin import grpc_glue as ref_glue
 from tpu_operator.plugin import manager as ref_manager
 from tpu_operator.plugin import server as ref_server
 from tpu_operator_torch import consts
+from tpu_operator_torch.kube import client as port_client
+from tpu_operator_torch.kube import kubelet_sim as port_kubelet_sim
+from tpu_operator_torch.kube import testing as port_testing
 from tpu_operator_torch.native import gpuinfo
 from tpu_operator_torch.plugin import grpc_glue, manager, server
 from tpu_operator_torch.plugin.proto import deviceplugin_pb2 as pb2
@@ -602,14 +605,21 @@ def test_stop_ends_streams_and_joins_the_poller(sides):
     assert not poller.is_alive()
 
 
-def test_kubelet_sim_drives_the_port_plugin_into_validate_plugin(tmp_path, dev_roots):
-    """The reference's simulated kubelet registers the port's plugin over
-    gRPC, consumes its ListAndWatch and writes the node's capacity and
-    allocatable; the port's plugin component passes on them, and fails
-    when every card is Unhealthy."""
-    client = FakeClient([make_cpu_node(NODE)])
+@pytest.mark.parametrize("side", ["reference", "port"])
+def test_kubelet_sim_drives_the_port_plugin_into_validate_plugin(tmp_path, dev_roots, side):
+    """Each simulated kubelet, the reference's and the port's, registers
+    the port's plugin over gRPC, consumes its ListAndWatch and writes the
+    node's capacity and allocatable into its own FakeClient; the port's
+    plugin component passes on them, and fails when every card is
+    Unhealthy."""
+    if side == "reference":
+        client = FakeClient([make_cpu_node(NODE)])
+        kubelet_cls = KubeletDeviceManager
+    else:
+        client = port_client.FakeClient([port_testing.make_cpu_node(NODE)])
+        kubelet_cls = port_kubelet_sim.KubeletDeviceManager
     socket_dir = str(tmp_path / "kubelet")
-    kubelet = KubeletDeviceManager(client, NODE, socket_dir)
+    kubelet = kubelet_cls(client, NODE, socket_dir)
     kubelet.start()
     servicer = server.GPUDevicePluginServicer(dev_root=dev_roots[1], poll_interval_s=POLL_S,
                                               health_probe_interval_s=3600)
@@ -667,7 +677,10 @@ for mod in ("tpu_operator_torch", "tpu_operator_torch.workloads.topology",
             "tpu_operator_torch.plugin.server", "tpu_operator_torch.plugin.manager",
             "tpu_operator_torch.operands.runtime_wire", "tpu_operator_torch.discovery",
             "tpu_operator_torch.discovery.tfd", "tpu_operator_torch.controllers.state_manager",
-            "tpu_operator_torch.native.gpuinfo"):
+            "tpu_operator_torch.native.gpuinfo", "tpu_operator_torch.api.v1",
+            "tpu_operator_torch.cfg.main", "tpu_operator_torch.cfg.crdgen", "tpu_operator_torch.obs",
+            "tpu_operator_torch.kube", "tpu_operator_torch.kube.rest", "tpu_operator_torch.kube.kubesim",
+            "tpu_operator_torch.kube.testing"):
     importlib.import_module(mod)
 from tpu_operator_torch.native import gpuinfo
 gpuinfo._load = lambda: None

@@ -23,9 +23,13 @@ plugin (``plugin/``, over the kubelet's gRPC API) and feature discovery
 (``discovery/``), placed by ``workloads/topology.py``, nor the node's
 partition and telemetry operands: the slice manager (``sliceman/``), the
 metrics exporter (``exporter/``) and the driver, driver-manager, vfio and
-VM operands (``operands/``). grpc, protobuf, PyYAML and
+VM operands (``operands/``), nor the control plane's foundation: the
+ClusterPolicy types (``api/v1/``), its schema validation, CRD generation
+and the ``gpuop-cfg`` CLI (``cfg/``), and the client stack, KubeSim and
+the simulated kubelet (``kube/``). grpc, protobuf, PyYAML and
 ``prometheus_client`` are imported only inside the functions that need
-them.
+them, and grpc by ``kube/kubelet_sim.py``, which nothing imports with the
+package.
 
 The package imports ``torch`` and never ``jax`` or ``tpu_operator``.
 Entry points run on ``cuda`` unless the caller asks for the CPU, where each

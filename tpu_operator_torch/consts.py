@@ -1,16 +1,24 @@
-"""Names, labels and host paths the port's validator and node agents use.
+"""Names, labels and host paths the port's control plane, validator and
+node agents use.
 
 The barrier directory and file-name convention are the same as the JAX
 package's (``tpu_operator/consts.py``); the port keeps its own copy so it
 imports nothing from there. The API group and the node labels are the
 reference's own (``consts.py:40``, ``:112-114``, ``:229``, ``:253-268``):
-the control plane that writes them is not ported yet, so the node agents
-read the labels it writes. The resource names and the driver's paths are
-the card's (``nvidia.com/gpu``, ``/run/nvidia/driver``).
+the control plane writes the same label bus the node agents read, so one
+group serves both halves, and ``nvidia.com`` would collide with NVIDIA's
+own ``clusterpolicies.nvidia.com`` CRD. The resource names, the NFD
+fallback and the driver's paths are the card's (``nvidia.com/gpu``,
+``pci-10de``, ``/run/nvidia/driver``); a label or component name that
+embeds ``libtpu`` takes ``driver``.
 """
 
-# --- API group and node labels (reference consts.py) -------------------
+# --- API group, the CRD and node labels (reference consts.py) ----------
 GROUP = "tpu.k8s.io"
+API_VERSION = f"{GROUP}/v1"
+CLUSTER_POLICY_KIND = "ClusterPolicy"
+CRD_NAME = f"clusterpolicies.{GROUP}"
+DEFAULT_NAMESPACE = "tpu-operator"
 WORKLOAD_CONFIG_LABEL = f"{GROUP}/tpu.workload.config"
 WORKLOAD_CONTAINER = "container"
 WORKLOAD_VM_PASSTHROUGH = "vm-passthrough"
@@ -25,8 +33,93 @@ SLICE_READY_LABEL = f"{GROUP}/tpu.slice.ready"
 # written by the control plane's repartition controller (:166-167)
 SLICE_CONFIG_LABEL = f"{GROUP}/tpu.slice.config"
 SLICE_CONFIG_STATE_LABEL = f"{GROUP}/tpu.slice.config.state"
-# an operand's deploy label, as the chip-clients file lists them (:68)
+# --- operator-managed labels (reference :64-106) ------------------------
+TPU_PRESENT_LABEL = f"{GROUP}/tpu.present"
+# an operand's deploy label = its DaemonSet's nodeSelector (:68)
 DEPLOY_LABEL_PREFIX = f"{GROUP}/tpu.deploy."
+COMPONENT_DRIVER = "driver"  # the reference's COMPONENT_LIBTPU
+COMPONENT_RUNTIME = "tpu-runtime"
+COMPONENT_DEVICE_PLUGIN = "device-plugin"
+COMPONENT_METRICSD = "metricsd"
+COMPONENT_METRICS_EXPORTER = "metrics-exporter"
+COMPONENT_TFD = "tpu-feature-discovery"
+COMPONENT_SLICE_MANAGER = "slice-manager"
+COMPONENT_OPERATOR_VALIDATOR = "operator-validator"
+COMPONENT_NODE_STATUS_EXPORTER = "node-status-exporter"
+COMPONENT_VM_MANAGER = "vm-manager"
+COMPONENT_VM_DEVICE_MANAGER = "vm-device-manager"
+COMPONENT_VFIO_MANAGER = "vfio-manager"
+COMPONENT_SANDBOX_DEVICE_PLUGIN = "sandbox-device-plugin"
+COMPONENT_SANDBOX_VALIDATOR = "sandbox-validator"
+COMPONENT_KATA_MANAGER = "kata-manager"
+COMPONENT_MAINTENANCE_HANDLER = "maintenance-handler"
+CONTAINER_WORKLOAD_COMPONENTS = [
+    COMPONENT_DRIVER,
+    COMPONENT_RUNTIME,
+    COMPONENT_DEVICE_PLUGIN,
+    COMPONENT_METRICSD,
+    COMPONENT_METRICS_EXPORTER,
+    COMPONENT_TFD,
+    COMPONENT_SLICE_MANAGER,
+    COMPONENT_OPERATOR_VALIDATOR,
+    COMPONENT_NODE_STATUS_EXPORTER,
+    COMPONENT_MAINTENANCE_HANDLER,
+]
+VM_WORKLOAD_COMPONENTS = [
+    COMPONENT_VM_MANAGER,
+    COMPONENT_VM_DEVICE_MANAGER,
+    COMPONENT_VFIO_MANAGER,
+    COMPONENT_SANDBOX_DEVICE_PLUGIN,
+    COMPONENT_SANDBOX_VALIDATOR,
+    COMPONENT_KATA_MANAGER,
+]
+# NFD fallback: NVIDIA's PCI vendor id 10de present on the node (stands in
+# for NFD_TPU_PCI_LABEL, :51)
+NFD_GPU_PCI_LABEL = "feature.node.kubernetes.io/pci-10de.present"
+NFD_KERNEL_LABEL = "feature.node.kubernetes.io/kernel-version.full"
+NFD_OS_LABEL = "feature.node.kubernetes.io/system-os_release.ID"
+NFD_OS_VERSION_LABEL = "feature.node.kubernetes.io/system-os_release.VERSION_ID"
+
+# --- the disruption owners' state labels (reference :122-200): the
+#     upgrade FSM's, remediation's and the re-partition roll's, whose
+#     values kube/disruption.py reads ---------------------------------
+UPGRADE_STATE_LABEL = f"{GROUP}/driver-upgrade-state"  # the reference's libtpu-upgrade-state
+UPGRADE_STATE_UNKNOWN = ""
+UPGRADE_STATE_UPGRADE_REQUIRED = "upgrade-required"
+UPGRADE_STATE_CORDON_REQUIRED = "cordon-required"
+UPGRADE_STATE_WAIT_FOR_JOBS_REQUIRED = "wait-for-jobs-required"
+UPGRADE_STATE_POD_DELETION_REQUIRED = "pod-deletion-required"
+UPGRADE_STATE_DRAIN_REQUIRED = "drain-required"
+UPGRADE_STATE_POD_RESTART_REQUIRED = "pod-restart-required"
+UPGRADE_STATE_VALIDATION_REQUIRED = "validation-required"
+UPGRADE_STATE_UNCORDON_REQUIRED = "uncordon-required"
+UPGRADE_STATE_DONE = "upgrade-done"
+UPGRADE_STATE_FAILED = "upgrade-failed"
+# states that hold a node disrupted for the shared budget
+UPGRADE_ACTIVE_STATES = (
+    UPGRADE_STATE_CORDON_REQUIRED,
+    UPGRADE_STATE_WAIT_FOR_JOBS_REQUIRED,
+    UPGRADE_STATE_POD_DELETION_REQUIRED,
+    UPGRADE_STATE_DRAIN_REQUIRED,
+    UPGRADE_STATE_POD_RESTART_REQUIRED,
+    UPGRADE_STATE_VALIDATION_REQUIRED,
+    UPGRADE_STATE_UNCORDON_REQUIRED,
+)
+REMEDIATION_STATE_LABEL = f"{GROUP}/remediation-state"
+REMEDIATION_STATE_OBSERVED = "observed"
+REMEDIATION_STATE_RESTART = "restart-operands"
+REMEDIATION_STATE_REVALIDATE = "revalidate"
+REMEDIATION_STATE_CORDON_DRAIN = "cordon-drain"
+REMEDIATION_STATE_QUARANTINED = "quarantined"
+REMEDIATION_STATE_RECOVERED = "recovered"
+REMEDIATION_STATE_EXHAUSTED = "exhausted"
+REMEDIATION_DISRUPTED_STATES = (
+    REMEDIATION_STATE_CORDON_DRAIN,
+    REMEDIATION_STATE_QUARANTINED,
+    REMEDIATION_STATE_EXHAUSTED,
+)
+REPARTITION_STATE_LABEL = f"{GROUP}/repartition-state"
+REPARTITION_STATE_ROLLING = "rolling"
 VALIDATOR_PERF_ANNOTATION = f"{GROUP}/validator-perf"
 # the driver version that tags the validator-perf readings, as GPU feature
 # discovery publishes it (stands in for TFD_LIBTPU_VERSION_LABEL, :256)

@@ -1,4 +1,6 @@
-"""The Kubernetes verbs the port's node agents use: an in-cluster REST
-client on the standard library, the conflict-retried update, the pod-spec
-predicate of the pod sweeps and eviction through the Eviction
-subresource."""
+"""The Kubernetes client stack: the ``Client`` interface and its
+``FakeClient`` (``client.py``), server-side apply (``apply.py``), the REST
+client with its retry policy and breaker (``rest.py``, ``retry.py``), the
+node agents' in-cluster client (``incluster.py``), KubeSim, the API server
+over HTTP (``kubesim.py``), and the kubelet's device manager
+(``kubelet_sim.py``, the one module that needs grpc)."""
