@@ -166,6 +166,32 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    the CR admission, paged-LIST, watch-event and phase times and the
    card's name and power limit are logged; grpc is required (no plain-data
    fallback); this path launches none of K1-K7c;
+11. (after 10, before 4) the control plane's read and write paths, under a
+   watchdog of ``READ_WRITE_TIMEOUT_S``, on one KubeSim over loopback:
+   ``testing.seed_cluster`` writes the port's CRD and sample, the card's
+   node (feature discovery's labels) joins ``FLEET_NODES - 1`` simulated
+   nodes; a ``CachedClient`` over a ``RestClient`` syncs every default
+   kind (each kind's sync time logged), then a get, a label-selector LIST
+   and a LIST of every node issue zero HTTP requests and a foreign write
+   reaches the cache through its watch; the device plugin registers with
+   the port's ``KubeletDeviceManager`` and the cache's event hook sees
+   the chip table's card count as capacity and allocatable (one less
+   after ``mark_unhealthy``); ``EVENT_REPEATS`` records of one capacity
+   change store one Event whose count is true once past the
+   correlator's window, the coalesced ones issuing no request, and a
+   second reason with ``dedup_extra`` is stored apart; one label on every
+   node through ``WritePipeline`` at each of ``PIPELINE_DEPTHS`` and
+   through a ``BatchLane`` (two revisions of one key landing in order),
+   every node carrying the last value in the cache; a ``WarmJournal``
+   saved from the cache seeds a second one that starts with no LIST and
+   sees a node changed while it was down; ``simulate_kubelet_nodes`` over
+   one OnDelete driver DaemonSet (``consts.DRIVER_APP``) puts one Running
+   pod at the template hash on each node its ``nodeSelector`` names, a
+   template change leaves them alone, and the node agents' role writes
+   the card variant's datasheet rates; ``OperatorMetrics`` (
+   ``prometheus_client`` is required) counts the pipeline's queue waits
+   and each write verb's round trips; the times and the card's name and
+   power limit are logged; this path launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -2471,6 +2497,354 @@ def phase_control_plane() -> None:
         f"registration; no kernel of the package launched; phase 10 {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 11: the control plane's read and write paths
+READ_WRITE_TIMEOUT_S = 400  # the phase's watchdog
+PIPELINE_DEPTHS = (1, 4, 16)  # the write pipeline's depths the label wave runs at
+EVENT_REPEATS = 20  # times one capacity change is recorded inside the correlator's window
+POOL_NODES = 9  # fleet nodes the simulated kubelet's DaemonSet selects beside the card's
+POOL_LABEL = "chip-smoke.example.com/pool"
+WAVE_LABEL = "chip-smoke.example.com/wave"
+SYNC_TIMEOUT_S = 120  # for the informers to sync, a watch event or a write wave to land
+
+
+def _labels_of(client, name: str) -> dict:
+    return client.get("v1", "Node", name)["metadata"].get("labels", {}) or {}
+
+
+def phase_control_plane_rw() -> None:
+    """The control plane's read and write paths on the card machine
+    (phase 11): the informer cache, the write pipeline, Events, the warm
+    journal, the simulated fleet's kubelet and the operator's metrics over
+    one KubeSim; raises on any miss."""
+    import queue
+    import threading
+
+    from prometheus_client import REGISTRY
+
+    from tpu_operator_torch import _build
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.controllers import operator_metrics
+    from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.kube import apply, cache, events, kubelet_sim, kubesim, rest, testing, warm
+    from tpu_operator_torch.kube import write_pipeline
+    from tpu_operator_torch.kube.write_pipeline import BatchLane, WritePipeline
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.plugin import server as plugin
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    if not operator_metrics.HAVE_PROM:
+        raise RuntimeError("prometheus_client does not import: the operator's metrics would be no-ops")
+    metrics = operator_metrics.OperatorMetrics()
+    n = torch.cuda.device_count()
+    chips = gpuinfo.chip_summary()
+    uuid = {str(c["index"]): c.get("uuid") for c in chips}
+    if len(chips) != n or any(c["source"] != "nvml" or not c.get("uuid") for c in chips):
+        raise RuntimeError(f"the chip table does not name torch's {n} cards by UUID: {chips}")
+    ids = sorted(uuid, key=int)
+    ns = consts.DEFAULT_NAMESPACE
+    faulthandler.dump_traceback_later(READ_WRITE_TIMEOUT_S, exit=True)
+    stop = threading.Event()
+    caps = queue.Queue()
+    nums = {}
+    with tempfile.TemporaryDirectory(prefix="cs11-") as tmp:
+        sim_server = kubesim.KubeSimServer(port=0).start()
+        sim = sim_server.sim
+        caches = []
+        kubelet = plugin_server = None
+        window = events.EVENT_REFRESH_INTERVAL_S
+        try:
+            # 1. the port's CRD and sample, the card's node from feature
+            # discovery, then the fleet
+            raw = kubesim.make_client(sim_server.port)
+            testing.seed_cluster(raw, ns, node_names=())
+            labels = tfd.gather_features({"metadata": {"name": OPERANDS_NODE, "labels": {}}},
+                                         dev_root="/dev", driver_root="/", env={}, chips=chips)
+            check_features(labels, n)
+            labels["kubernetes.io/hostname"] = OPERANDS_NODE
+            raw.create({"apiVersion": "v1", "kind": "Node", "metadata": {"name": OPERANDS_NODE, "labels": labels}})
+            fleet = sim.add_nodes(FLEET_NODES - 1)
+            all_nodes = [OPERANDS_NODE] + fleet
+
+            # 2. the informers' sync; then reads that issue no request
+            cached = cache.CachedClient(kubesim.make_client(sim_server.port), namespace=ns, resync_interval_s=0)
+            caches.append(cached)
+            synced_at = {}
+            for (_, kind), inf in cached._informers.items():
+                inf.synced.set = lambda done=inf.synced.set, kind=kind: (
+                    synced_at.setdefault(kind, time.perf_counter()), done())
+            t0 = time.perf_counter()
+            if not cached.start_informers(stop, timeout_s=SYNC_TIMEOUT_S):
+                raise RuntimeError("the informers did not sync")
+            nums["cold_sync_ms"] = (time.perf_counter() - t0) * 1e3
+            by_kind = {k: round((t - t0) * 1e3, 2) for k, t in sorted(synced_at.items(), key=lambda kv: kv[1])}
+            if len(by_kind) != len(cached._informers):
+                raise RuntimeError(f"informers synced: {sorted(by_kind)} of {len(cached._informers)}")
+            requests = []
+            request = cached.live._request
+            cached.live._request = lambda method, path, *a, **kw: requests.append((method, path)) or request(
+                method, path, *a, **kw)
+            t0 = time.perf_counter()
+            node = cached.get("v1", "Node", OPERANDS_NODE)
+            mine = cached.list("v1", "Node", label_selector={"kubernetes.io/hostname": OPERANDS_NODE})
+            nodes = cached.list("v1", "Node")
+            read_ms = (time.perf_counter() - t0) * 1e3
+            if requests or [x["metadata"]["name"] for x in mine] != [OPERANDS_NODE] or len(nodes) != FLEET_NODES:
+                raise RuntimeError(f"cached reads: {len(requests)} requests, selector gave "
+                                   f"{[x['metadata']['name'] for x in mine]}, {len(nodes)} nodes")
+            if node["metadata"]["labels"] != labels:
+                raise RuntimeError("the cached node's labels are not feature discovery's")
+            seen = threading.Event()
+            cached.add_event_hook(lambda etype, obj: seen.set() if obj.get("kind") == "Node" and (
+                obj["metadata"].get("labels") or {}).get("chip-smoke.example.com/foreign") == "1" else None)
+            t0 = time.perf_counter()
+            kubesim.make_client(sim_server.port).patch_labels("v1", "Node", fleet[0],
+                                                              labels={"chip-smoke.example.com/foreign": "1"})
+            if not seen.wait(SYNC_TIMEOUT_S):
+                raise RuntimeError("a foreign write did not reach the cache through its watch")
+            foreign_ms = (time.perf_counter() - t0) * 1e3
+            if _labels_of(cached, fleet[0]).get("chip-smoke.example.com/foreign") != "1" or requests:
+                raise RuntimeError(f"the foreign write is not in the store ({len(requests)} requests)")
+            log(f"informer cache: {len(by_kind)} kinds synced in {nums['cold_sync_ms']:.1f} ms "
+                f"(ms by kind: {json.dumps(by_kind)}); get + selector LIST + LIST of {FLEET_NODES} nodes "
+                f"from the store in {read_ms:.2f} ms with 0 requests; a foreign write reached the cache's "
+                f"event hook in {foreign_ms:.1f} ms")
+
+            # 3. the card's capacity through the cache's event hook
+            cached.add_event_hook(lambda etype, obj: caps.put((time.perf_counter(), obj.get("status", {})))
+                                  if obj.get("kind") == "Node" and obj["metadata"]["name"] == OPERANDS_NODE else None)
+
+            def through_cache(alloc):
+                deadline = time.time() + PLUGIN_TIMEOUT_S
+                while time.time() < deadline:
+                    try:
+                        t, st = caps.get(timeout=1)
+                    except queue.Empty:
+                        continue
+                    got = (st.get("capacity", {}).get(consts.GPU_RESOURCE),
+                           st.get("allocatable", {}).get(consts.GPU_RESOURCE))
+                    if got == (str(n), str(alloc)):
+                        stored = cached.get("v1", "Node", OPERANDS_NODE)["status"]
+                        if stored["allocatable"].get(consts.GPU_RESOURCE) != str(alloc):
+                            raise RuntimeError(f"the hook saw allocatable {alloc}, the store holds {stored}")
+                        return t
+                raise RuntimeError(f"no cache event with capacity {n} and allocatable {alloc} "
+                                   f"within {PLUGIN_TIMEOUT_S} s")
+
+            socket_dir = os.path.join(tmp, "k")
+            kubelet = kubelet_sim.KubeletDeviceManager(kubesim.make_client(sim_server.port), OPERANDS_NODE, socket_dir)
+            kubelet.start()
+            servicer = plugin.GPUDevicePluginServicer(dev_root="/dev", driver_root="/", poll_interval_s=0.2,
+                                                      health_probe_interval_s=3600)
+            plugin_server = plugin.DevicePluginServer(servicer, socket_dir=socket_dir)
+            plugin_server.start()
+            t0 = time.perf_counter()
+            plugin_server.register_with_kubelet(kubelet.kubelet_socket)
+            nums["capacity_ms"] = (through_cache(n) - t0) * 1e3
+            t0 = time.perf_counter()
+            servicer.mark_unhealthy(ids[0])
+            down_ms = (through_cache(n - 1) - t0) * 1e3
+            t0 = time.perf_counter()
+            servicer.mark_healthy(ids[0])
+            up_ms = (through_cache(n) - t0) * 1e3
+            log(f"capacity through the cache's event hook: {n} / {n} of {consts.GPU_RESOURCE} "
+                f"{nums['capacity_ms']:.1f} ms after registration; card {ids[0]} Unhealthy -> allocatable {n - 1} "
+                f"in {down_ms:.1f} ms, healthy again in {up_ms:.1f} ms")
+
+            # 4. Events: one capacity change recorded again and again
+            policy = events.cluster_policy_ref()
+            message = f"{consts.GPU_RESOURCE}: capacity {n}, allocatable {n}"
+
+            def stored(reason):
+                return [e for e in kubesim.make_client(sim_server.port).list("v1", "Event", ns)
+                        if e["reason"] == reason]
+
+            events.reset_correlator(cached)
+            events.EVENT_REFRESH_INTERVAL_S = 3600.0
+            events.record_event(cached, ns, policy, events.TYPE_NORMAL, "CapacityChanged", message)
+            before = len(requests)
+            t0 = time.perf_counter()
+            for _ in range(EVENT_REPEATS - 1):
+                events.record_event(cached, ns, policy, events.TYPE_NORMAL, "CapacityChanged", message)
+            coalesce_us = (time.perf_counter() - t0) * 1e6 / (EVENT_REPEATS - 1)
+            coalesced_requests = len(requests) - before
+            inside = stored("CapacityChanged")
+            events.EVENT_REFRESH_INTERVAL_S = 0.0
+            events.record_event(cached, ns, policy, events.TYPE_NORMAL, "CapacityChanged", message)
+            past = stored("CapacityChanged")
+            events.record_event(cached, ns, policy, events.TYPE_WARNING, "CardUnhealthy", f"card {ids[0]}",
+                                dedup_extra=ids[0])
+            events.record_event(cached, ns, policy, events.TYPE_WARNING, "CardUnhealthy", f"card {ids[-1]}x",
+                                dedup_extra=ids[-1] + "x")
+            apart = stored("CardUnhealthy")
+            if (coalesced_requests or [e["count"] for e in inside] != [1]
+                    or [e["count"] for e in past] != [EVENT_REPEATS + 1]
+                    or sorted(e["message"] for e in apart) != sorted([f"card {ids[0]}", f"card {ids[-1]}x"])
+                    or past[0]["source"] != {"component": consts.EVENT_COMPONENT}):
+                raise RuntimeError(f"Events: {coalesced_requests} requests for coalesced records; inside the "
+                                   f"window {inside}, past it {past}, apart {apart}")
+            log(f"events: {EVENT_REPEATS} records of one capacity change on the ClusterPolicy -> one Event, "
+                f"count {past[0]['count']} once past the window; {EVENT_REPEATS - 1} coalesced records issued "
+                f"0 requests ({coalesce_us:.1f} us each); two dedup_extra records stored apart")
+
+            # 5. the write pipeline: one label on every node, at each depth
+            walls = {}
+            for depth in PIPELINE_DEPTHS:
+                value = f"depth-{depth}"
+                pipe = WritePipeline(depth=depth, name=f"cs11-d{depth}")
+                t0 = time.perf_counter()
+                for name in all_nodes:
+                    pipe.submit(("Node", "", name), cached.patch_labels, "v1", "Node", name,
+                                labels={WAVE_LABEL: value})
+                for rev in ("1", "2"):  # two revisions under one key
+                    pipe.submit(("Node", "", OPERANDS_NODE), cached.patch_labels, "v1", "Node", OPERANDS_NODE,
+                                labels={WAVE_LABEL: value + "-rev" + rev})
+                errors = pipe.drain(timeout=SYNC_TIMEOUT_S)
+                walls[depth] = (time.perf_counter() - t0) * 1e3
+                if errors:
+                    raise RuntimeError(f"depth {depth}: {len(errors)} writes failed: {errors[:3]}")
+                want = {name: value for name in fleet}
+                want[OPERANDS_NODE] = value + "-rev2"
+                _wait_for(f"depth {depth}'s wave in the cache",
+                          lambda: all(_labels_of(cached, k).get(WAVE_LABEL) == v for k, v in want.items()),
+                          SYNC_TIMEOUT_S)
+            lane_pipe = WritePipeline(depth=4, name="cs11-lane")
+            lane = BatchLane(lane_pipe, lambda payloads: apply.batch_flush(
+                cached, payloads, field_manager="chip-smoke", force=True, prune=False, update_only=True),
+                name="cs11-nodes", shards=4)
+
+            def node_apply(name, value):
+                return {"apiVersion": "v1", "kind": "Node", "metadata": {"name": name, "labels": {WAVE_LABEL: value}}}
+
+            t0 = time.perf_counter()
+            futs = [lane.submit(("Node", "", name), node_apply(name, "lane")) for name in all_nodes]
+            futs += [lane.submit(("Node", "", OPERANDS_NODE), node_apply(OPERANDS_NODE, "lane-rev" + rev))
+                     for rev in ("1", "2")]
+            errors = lane_pipe.drain(timeout=SYNC_TIMEOUT_S)
+            for f in futs:
+                f.result(timeout=SYNC_TIMEOUT_S)
+            walls["lane"] = (time.perf_counter() - t0) * 1e3
+            want = {name: "lane" for name in fleet}
+            want[OPERANDS_NODE] = "lane-rev2"
+            _wait_for("the batch lane's wave in the cache",
+                      lambda: all(_labels_of(cached, k).get(WAVE_LABEL) == v for k, v in want.items()),
+                      SYNC_TIMEOUT_S)
+            stats = lane.stats()
+            if errors or stats["items_failed_total"]:
+                raise RuntimeError(f"the batch lane: {errors}, {stats}")
+            nums["pipeline_ms"] = walls
+            log(f"write pipeline: {len(all_nodes)} label patches (+2 revisions of one key, landed in order) "
+                f"at depth " + ", ".join(f"{d}: {walls[d]:.1f} ms" for d in PIPELINE_DEPTHS)
+                + f"; batch lane (depth 4, 4 shards): {walls['lane']:.1f} ms in {stats['batches_total']} "
+                f"batches (max fill {stats['max_fill']}); every node carries the last value in the cache")
+
+            # 6. the warm journal: save, stop, change a node, warm-start
+            journal = warm.WarmJournal(os.path.join(tmp, "warm.json"))
+            if not journal.save(warm.export_state(cached, None, ns)):
+                raise RuntimeError("the warm journal was not saved")
+            cached.stop(timeout_s=30)
+            if cached._threads:
+                raise RuntimeError(f"the cache's threads outlived stop: {cached._threads}")
+            raw.patch_labels("v1", "Node", fleet[1], labels={"chip-smoke.example.com/while-down": "1"})
+            payload = journal.load(ns)
+            if payload is None:
+                raise RuntimeError("the warm journal did not load")
+            warm_cache = cache.CachedClient(kubesim.make_client(sim_server.port), namespace=ns, resync_interval_s=0)
+            caches.append(warm_cache)
+            seeded = warm.seed_state(warm_cache, None, payload)["informer_kinds"]
+            lists = sim.request_counts.get("LIST", 0)
+            t0 = time.perf_counter()
+            if not warm_cache.start_informers(stop, timeout_s=SYNC_TIMEOUT_S):
+                raise RuntimeError("the warm cache did not sync")
+            nums["warm_start_ms"] = (time.perf_counter() - t0) * 1e3
+            listed = sim.request_counts.get("LIST", 0) - lists
+            caught_up_ms = (_wait_for("the change made while the cache was down", lambda: _labels_of(
+                warm_cache, fleet[1]).get("chip-smoke.example.com/while-down") == "1" and time.perf_counter(),
+                SYNC_TIMEOUT_S) - t0) * 1e3
+            if listed or seeded != len(warm_cache._informers) or len(warm_cache.list("v1", "Node")) != FLEET_NODES:
+                raise RuntimeError(f"warm start: {listed} LISTs, {seeded} kinds seeded of "
+                                   f"{len(warm_cache._informers)}")
+            log(f"warm journal: {journal.last_save_bytes} bytes; {seeded} kinds seeded; warm start "
+                f"{nums['warm_start_ms']:.1f} ms with 0 LISTs against a cold sync of {nums['cold_sync_ms']:.1f} ms; "
+                f"the node changed while down seen {caught_up_ms:.1f} ms after the start")
+
+            # 7. the simulated fleet's kubelet over one OnDelete DaemonSet
+            pool = [OPERANDS_NODE] + fleet[:POOL_NODES]
+            for name in pool:
+                raw.patch_labels("v1", "Node", name, labels={POOL_LABEL: "a"})
+            app, version = consts.DRIVER_APP, labels[consts.DRIVER_VERSION_LABEL]
+            raw.create({"apiVersion": "apps/v1", "kind": "DaemonSet", "metadata": {"name": app, "namespace": ns},
+                        "spec": {"selector": {"matchLabels": {"app": app}}, "updateStrategy": {"type": "OnDelete"},
+                                 "template": {"metadata": {"labels": {"app": app}, "annotations": {
+                                     consts.LAST_APPLIED_HASH_ANNOTATION: "h1"}},
+                                     "spec": {"nodeSelector": {POOL_LABEL: "a"}, "containers": [
+                                         {"name": "driver", "image": f"nvcr.io/nvidia/driver:{version}"}]}}}})
+
+            def driver_pods():
+                return sorted(((p["metadata"]["name"], p["spec"]["nodeName"], p["status"]["phase"],
+                                p["metadata"]["annotations"][consts.LAST_APPLIED_HASH_ANNOTATION])
+                               for p in raw.list("v1", "Pod", ns, label_selector={"app": app})))
+
+            t0 = time.perf_counter()
+            testing.simulate_kubelet_nodes(raw, ns, all_nodes)
+            sweep_ms = (time.perf_counter() - t0) * 1e3
+            want = sorted((f"{app}-{name}", name, "Running", "h1") for name in pool)
+            got = driver_pods()
+            scheduled = raw.get("apps/v1", "DaemonSet", app, ns)["status"]["desiredNumberScheduled"]
+            ds = raw.get("apps/v1", "DaemonSet", app, ns)
+            ds["spec"]["template"]["metadata"]["annotations"][consts.LAST_APPLIED_HASH_ANNOTATION] = "h2"
+            raw.update(ds)
+            testing.simulate_kubelet_nodes(raw, ns, all_nodes)
+            card = raw.get("v1", "Node", OPERANDS_NODE)["metadata"]
+            tflops, gbps = testing.perf_base(card["labels"])
+            perf = json.loads(card["annotations"].get(consts.VALIDATOR_PERF_ANNOTATION, "{}"))
+            if got != want or scheduled != len(pool) or driver_pods() != want:
+                raise RuntimeError(f"the simulated kubelet: {got} (scheduled {scheduled}), after the template "
+                                   f"change {driver_pods()}; want {want}")
+            if perf != {"gbps": gbps, "tflops": tflops, "version": version} or card["labels"].get(
+                    consts.DRIVER_VERSION_LABEL) != version:
+                raise RuntimeError(f"the node agents wrote {perf} and version "
+                                   f"{card['labels'].get(consts.DRIVER_VERSION_LABEL)}")
+            log(f"simulated kubelet: {app} OnDelete -> {len(pool)} Running pods at the template hash on the "
+                f"nodes its nodeSelector names ({sweep_ms:.1f} ms for {len(all_nodes)} nodes); a template change "
+                f"left them alone; validator-perf on the card's node {json.dumps(perf)}")
+
+            # 8. the operator's metrics
+            waits = REGISTRY.get_sample_value("gpu_operator_write_pipeline_queue_wait_duration_ms_count") or 0
+            rtt = {verb: REGISTRY.get_sample_value("gpu_operator_apiserver_write_rtt_ms_count", {"verb": verb}) or 0
+                   for verb in ("POST", "PUT", "PATCH", "APPLY")}
+            hooked = (write_pipeline.on_queue_wait_ms == metrics.write_pipeline_queue_wait_hist.observe
+                      and rest.on_write_rtt_ms == metrics._observe_write_rtt)
+            if waits <= 0 or min(rtt.values()) <= 0 or not hooked:
+                raise RuntimeError(f"metrics: queue-wait count {waits}, write RTT counts {rtt}, hooks {hooked}")
+            mean = {verb: REGISTRY.get_sample_value("gpu_operator_apiserver_write_rtt_ms_sum", {"verb": verb}) / c
+                    for verb, c in rtt.items()}
+            log(f"operator metrics: gpu_operator_write_pipeline_queue_wait_duration_ms count {waits:.0f}; "
+                f"gpu_operator_apiserver_write_rtt_ms count {json.dumps(rtt)}, mean ms "
+                f"{json.dumps({k: round(v, 3) for k, v in mean.items()})}")
+        finally:
+            stop.set()
+            events.EVENT_REFRESH_INTERVAL_S = window
+            if plugin_server is not None:
+                plugin_server.stop()
+            if kubelet is not None:
+                kubelet.stop()
+            for c in caches:
+                c.stop(timeout_s=30)
+            sim_server.stop()
+            faulthandler.cancel_dump_traceback_later()
+        leftover = [t.name for c in caches for t in c._threads]
+        if leftover:
+            raise RuntimeError(f"cache threads outlived the phase: {leftover}")
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the control plane's read and write paths launched kernels of the package: {launched}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"read and write paths on: {smi.stdout.strip() or smi.stderr.strip()}; {json.dumps(nums)}; "
+        f"no kernel of the package launched; phase 11 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -2512,6 +2886,7 @@ def main() -> int:
     phase_node_operands()
     phase_native()
     phase_control_plane()
+    phase_control_plane_rw()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

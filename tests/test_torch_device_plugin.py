@@ -665,7 +665,11 @@ def test_transport_free_path_needs_no_grpc_protobuf_or_yaml(dev_roots):
     with grpc, protobuf and PyYAML blocked, and the servicer answers
     through its plain-data methods (what the card check falls back to
     without grpc). ``deviceplugin_pb2`` is protoc's output and needs
-    protobuf by nature."""
+    protobuf by nature. The control plane's read and write paths (the
+    informer cache, the write pipeline, Events, the warm journal,
+    log-once) and the state machine's leaf modules import too;
+    ``controllers.resource_manager`` is the one that needs PyYAML, and
+    only where it loads a state directory, so its import needs none."""
     code = f"""
 import sys
 for name in ("grpc", "google", "google.protobuf", "yaml"):
@@ -680,7 +684,12 @@ for mod in ("tpu_operator_torch", "tpu_operator_torch.workloads.topology",
             "tpu_operator_torch.native.gpuinfo", "tpu_operator_torch.api.v1",
             "tpu_operator_torch.cfg.main", "tpu_operator_torch.cfg.crdgen", "tpu_operator_torch.obs",
             "tpu_operator_torch.kube", "tpu_operator_torch.kube.rest", "tpu_operator_torch.kube.kubesim",
-            "tpu_operator_torch.kube.testing"):
+            "tpu_operator_torch.kube.testing", "tpu_operator_torch.kube.cache",
+            "tpu_operator_torch.kube.write_pipeline", "tpu_operator_torch.kube.events",
+            "tpu_operator_torch.kube.warm", "tpu_operator_torch.obs.logonce",
+            "tpu_operator_torch.controllers.render_cache", "tpu_operator_torch.controllers.cluster_snapshot",
+            "tpu_operator_torch.controllers.operator_metrics",
+            "tpu_operator_torch.controllers.resource_manager"):
     importlib.import_module(mod)
 from tpu_operator_torch.native import gpuinfo
 gpuinfo._load = lambda: None

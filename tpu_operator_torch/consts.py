@@ -130,6 +130,42 @@ GPU_PRODUCT_LABEL = "nvidia.com/gpu.product"
 GPU_COUNT_LABEL = "nvidia.com/gpu.count"
 GPU_MEMORY_LABEL = "nvidia.com/gpu.memory"  # MiB
 OPERATOR_NAMESPACE_ENV = "OPERATOR_NAMESPACE"
+# the hash of the last-applied spec, on operand objects and the pods the
+# kubelet stamps from a DaemonSet template (reference :308)
+LAST_APPLIED_HASH_ANNOTATION = f"{GROUP}/last-applied-hash"
+
+# --- the control plane's own names (reference events.py:36, warm.py:39,
+#     operator_metrics.py:86) -------------------------------------------
+EVENT_COMPONENT = "gpu-operator"  # an Event's source.component, the SSA field manager's name
+WARM_STATE_ENV = "GPU_OPERATOR_WARM_STATE"  # the warm journal's path
+# the operator's Prometheus namespace; differs from the reference's so the
+# two packages' series can share one registry
+METRICS_NAMESPACE = "gpu_operator"
+
+# --- operand DaemonSets' ``app`` labels: the reference's
+#     (``assets/state-*/``) to the port's. ``tpu-`` becomes ``gpu-``,
+#     ``libtpu`` ``driver`` and ``runtime`` ``toolkit``; a per-variant
+#     driver DaemonSet appends ``-<variant>`` to its app ------------------
+OPERAND_APPS = {
+    "tpu-libtpu-daemonset": "gpu-driver-daemonset",
+    "tpu-runtime-daemonset": "gpu-toolkit-daemonset",
+    "tpu-device-plugin-daemonset": "gpu-device-plugin-daemonset",
+    "tpu-metricsd": "gpu-metricsd",
+    "tpu-metrics-exporter": "gpu-metrics-exporter",
+    "tpu-feature-discovery": "gpu-feature-discovery",
+    "tpu-slice-manager": "gpu-slice-manager",
+    "tpu-operator-validator": "gpu-operator-validator",
+    "tpu-node-status-exporter": "gpu-node-status-exporter",
+    "tpu-maintenance-handler": "gpu-maintenance-handler",
+    "tpu-vm-manager-daemonset": "gpu-vm-manager-daemonset",
+    "tpu-vm-device-manager": "gpu-vm-device-manager",
+    "tpu-vfio-manager-daemonset": "gpu-vfio-manager-daemonset",
+    "tpu-sandbox-device-plugin-daemonset": "gpu-sandbox-device-plugin-daemonset",
+    "tpu-sandbox-validator": "gpu-sandbox-validator",
+    "tpu-kata-manager-daemonset": "gpu-kata-manager-daemonset",
+}
+DRIVER_APP = OPERAND_APPS["tpu-libtpu-daemonset"]
+VALIDATOR_APP = OPERAND_APPS["tpu-operator-validator"]
 
 # --- resource names (stand in for TPU_RESOURCE and
 #     TPU_SUBSLICE_RESOURCE_PREFIX, :46-47) -------------------------------

@@ -16,6 +16,16 @@ them) across through the rename table of
 ``api/v1/clusterpolicy_types.py``, and ``crd_from_reference`` does the same
 for a CRD manifest (property names, defaults and the descriptions'
 accelerator words; enums and bounds stay as they are).
+
+The objects around it cross through ``operand_app_from_reference`` (the
+``OPERAND_APPS`` table, a per-variant suffix kept), ``pod_from_reference``
+(resource requests and limits ``google.com/tpu`` to ``nvidia.com/gpu``,
+an operand's ``app`` label and name), ``object_from_reference``, which
+converts any object by its kind (a node's capacity, allocatable and
+driver-version label; a DaemonSet's name and ``app`` labels), and
+``warm_journal_from_reference``, which maps every informer snapshot of a
+warm journal through it; the app, pod and journal converters have their
+way back.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from tpu_operator_torch import consts
 from tpu_operator_torch.api.v1 import clusterpolicy_types as cpt
 
 
@@ -171,3 +182,151 @@ def crd_from_reference(crd: Dict[str, Any]) -> Dict[str, Any]:
         if "openAPIV3Schema" in schema:
             schema["openAPIV3Schema"] = _schema_from_reference(schema["openAPIV3Schema"], (), keys, value)
     return out
+
+
+# the reference's accelerator names on pods, nodes and DaemonSets
+REF_TPU_RESOURCE = "google.com/tpu"
+REF_TPU_SUBSLICE_PREFIX = "google.com/tpu-"
+REF_LIBTPU_VERSION_LABEL = f"{consts.TFD_LABEL_PREFIX}libtpu-version"
+
+
+def _map_app(app: str, table: Dict[str, str]) -> str:
+    """``app`` through ``table``, the longest key that is ``app`` or its
+    prefix before a ``-<suffix>`` (a per-variant DaemonSet) winning."""
+    for old in sorted(table, key=len, reverse=True):
+        if app == old or app.startswith(old + "-"):
+            return table[old] + app[len(old):]
+    return app
+
+
+def operand_app_from_reference(app: str) -> str:
+    """A reference operand DaemonSet's ``app`` label as the port's."""
+    return _map_app(app, consts.OPERAND_APPS)
+
+
+def operand_app_to_reference(app: str) -> str:
+    """The port's operand ``app`` label as the reference's."""
+    return _map_app(app, {new: old for old, new in consts.OPERAND_APPS.items()})
+
+
+def _resource(name: str, forward: bool) -> str:
+    if forward:
+        if name == REF_TPU_RESOURCE:
+            return consts.GPU_RESOURCE
+        if name.startswith(REF_TPU_SUBSLICE_PREFIX):
+            return consts.MIG_RESOURCE_PREFIX + name[len(REF_TPU_SUBSLICE_PREFIX):]
+        return name
+    if name == consts.GPU_RESOURCE:
+        return REF_TPU_RESOURCE
+    if name.startswith(consts.MIG_RESOURCE_PREFIX):
+        return REF_TPU_SUBSLICE_PREFIX + name[len(consts.MIG_RESOURCE_PREFIX):]
+    return name
+
+
+def _rename_keys(d: Dict[str, Any], fn: Callable[[str], str]) -> Dict[str, Any]:
+    return {fn(k): v for k, v in d.items()}
+
+
+def _labels(meta: Dict[str, Any], forward: bool, rename: bool = False) -> None:
+    """The ``app`` label and the driver's version label of ``meta``; with
+    ``rename``, an operand's name too (``<app>`` or ``<app>-<node>``)."""
+    labels = meta.get("labels")
+    if not labels:
+        return
+    app = operand_app_from_reference if forward else operand_app_to_reference
+    if "app" in labels:
+        mapped = app(labels["app"])
+        if rename and mapped != labels["app"] and "name" in meta:
+            meta["name"] = app(meta["name"])
+        labels["app"] = mapped
+    old, new = (REF_LIBTPU_VERSION_LABEL, consts.DRIVER_VERSION_LABEL)
+    if not forward:
+        old, new = new, old
+    if old in labels:
+        labels[new] = labels.pop(old)
+
+
+def _pod(pod: Dict[str, Any], forward: bool) -> Dict[str, Any]:
+    out = copy.deepcopy(pod)
+    _labels(out.get("metadata", {}), forward, rename=True)
+    for container in (out.get("spec", {}).get("containers") or []):
+        res = container.get("resources") or {}
+        for bucket in ("limits", "requests"):
+            if res.get(bucket):
+                res[bucket] = _rename_keys(res[bucket], lambda k: _resource(k, forward))
+    return out
+
+
+def pod_from_reference(pod: Dict[str, Any]) -> Dict[str, Any]:
+    """A reference pod as the port's: ``google.com/tpu`` requests and
+    limits become ``nvidia.com/gpu`` (subslices ``nvidia.com/mig-*``), and
+    an operand pod's ``app`` label and name the port's."""
+    return _pod(pod, True)
+
+
+def pod_to_reference(pod: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's pod as the reference's (the inverse of
+    ``pod_from_reference``)."""
+    return _pod(pod, False)
+
+
+def _node(node: Dict[str, Any], forward: bool) -> Dict[str, Any]:
+    out = copy.deepcopy(node)
+    _labels(out.get("metadata", {}), forward)
+    status = out.get("status") or {}
+    for field in ("capacity", "allocatable"):
+        if status.get(field):
+            status[field] = _rename_keys(status[field], lambda k: _resource(k, forward))
+    return out
+
+
+def _daemonset(ds: Dict[str, Any], forward: bool) -> Dict[str, Any]:
+    out = copy.deepcopy(ds)
+    _labels(out.get("metadata", {}), forward, rename=True)
+    spec = out.get("spec") or {}
+    match = (spec.get("selector") or {}).get("matchLabels")
+    if match:
+        _labels({"labels": match}, forward)
+    _labels((spec.get("template") or {}).get("metadata") or {}, forward)
+    return out
+
+
+def _object_converter(kind: str, forward: bool) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
+    if kind == consts.CLUSTER_POLICY_KIND:
+        return clusterpolicy_from_reference if forward else clusterpolicy_to_reference
+    if kind == "Pod":
+        return lambda o: _pod(o, forward)
+    if kind == "Node":
+        return lambda o: _node(o, forward)
+    if kind == "DaemonSet":
+        return lambda o: _daemonset(o, forward)
+    return copy.deepcopy
+
+
+def object_from_reference(obj: Dict[str, Any]) -> Dict[str, Any]:
+    """One reference object as the port's, by its kind: a ClusterPolicy,
+    pod, node or DaemonSet through its converter, any other kind copied."""
+    return _object_converter(obj.get("kind", ""), True)(obj)
+
+
+def _journal(payload: Dict[str, Any], forward: bool) -> Dict[str, Any]:
+    out = copy.deepcopy(payload)
+    for key, snap in (out.get("informers") or {}).items():
+        fn = _object_converter(key.partition("|")[2], forward)
+        snap["objects"] = [fn(o) for o in snap.get("objects") or []]
+    return out
+
+
+def warm_journal_from_reference(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """A warm journal the reference wrote (``WarmJournal.load``'s payload)
+    as the port's: every informer snapshot's objects through the
+    converters above, the ClusterPolicy through
+    ``clusterpolicy_from_reference``. Resume resourceVersions, the render
+    cache and the apply-set membership stay as they are."""
+    return _journal(payload, True)
+
+
+def warm_journal_to_reference(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's warm journal as the reference's (the inverse of
+    ``warm_journal_from_reference``)."""
+    return _journal(payload, False)

@@ -1247,6 +1247,11 @@ def _match_field_selector(obj: dict, selector: str) -> bool:
 
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
+    # a response goes out as two writes (headers, then body); with Nagle on,
+    # the body waits for the client's delayed ACK of the headers, ~40 ms a
+    # request on Linux. An API server answers with TCP_NODELAY set (Go's
+    # default), so the simulator does too.
+    disable_nagle_algorithm = True
     sim: KubeSim = None  # injected by serve()
     stop_event: threading.Event = None
 
