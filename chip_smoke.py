@@ -192,6 +192,28 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    ``prometheus_client`` is required) counts the pipeline's queue waits
    and each write verb's round trips; the times and the card's name and
    power limit are logged; this path launches none of K1-K7c;
+12. (after 11, before 4) the state machine on the card's node, under a
+   watchdog of ``STATE_MACHINE_TIMEOUT_S``, on one KubeSim over loopback:
+   ``testing.seed_cluster`` writes the port's CRD and sample (the other
+   H100 variant's driver pinned in ``generationConfigs``), the card's node
+   (feature discovery's labels) joins ``FLEET_NODES - 1`` nodes, of them
+   ``OTHER_VARIANT_NODES`` of the other variant and ``CPU_NODES`` without
+   a card; a ``ClusterPolicyController`` over a ``CachedClient`` with the
+   package's own assets (``run_state_machine``) labels the card's node
+   (present, the container workload's deploy labels, the variant
+   ``device_generation`` gives) and no CPU node; ``run_states`` with
+   ``simulate_kubelet_nodes`` between passes reads every enabled state
+   READY within ``MAX_PASSES``, every DaemonSet named by ``OPERAND_APPS``,
+   one driver DaemonSet a variant, the sandbox states off; a second pass
+   issues no write request and renders nothing; disabling the exporter
+   deletes its DaemonSet, a ``spec.driver.version`` edit moves only the
+   card variant's driver hash, a rolled-back ledger pins the previous
+   version; ``gang_epoch`` and a workload pod's owner find
+   ``gpu-operator-validator``; the card's slice reads READY with the
+   device plugin's cards and NOT_READY once every card is unhealthy; the
+   init, label fan-out, passes to READY and steady-pass times and the
+   card's name and power limit are logged; this path launches none of
+   K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -2845,6 +2867,328 @@ def phase_control_plane_rw() -> None:
         f"no kernel of the package launched; phase 11 {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 12: the state machine on the card's node
+STATE_MACHINE_TIMEOUT_S = 600  # the phase's watchdog
+OTHER_VARIANT_NODES = 200  # fleet nodes of the other H100 variant
+CPU_NODES = 100  # fleet nodes without a card
+MAX_PASSES = 6  # reconcile passes the enabled states get to read READY
+PINNED_VERSION = "550.90.07"  # spec.driver.generationConfigs' version for the other variant
+EDITED_VERSION = "550.127.05"  # the spec.driver.version edit
+SANDBOX_APPS = ("gpu-vm-manager-daemonset", "gpu-vm-device-manager", "gpu-sandbox-validator",
+                "gpu-vfio-manager-daemonset", "gpu-sandbox-device-plugin-daemonset", "gpu-kata-manager-daemonset")
+
+
+def _versions(client, av: str, kind: str, ns: str = "") -> dict:
+    return {o["metadata"]["name"]: o["metadata"].get("resourceVersion") for o in client.list(av, kind, ns)}
+
+
+def _cache_caught_up(cached, raw, ns: str) -> bool:
+    """Whether the cache holds every DaemonSet, pod, node and ClusterPolicy
+    at the server's resourceVersion."""
+    from tpu_operator_torch import consts
+
+    return all(_versions(cached, av, kind, n) == _versions(raw, av, kind, n) for av, kind, n in (
+        ("apps/v1", "DaemonSet", ns), ("v1", "Pod", ns), ("v1", "Node", ""),
+        (consts.API_VERSION, consts.CLUSTER_POLICY_KIND, "")))
+
+
+def _driver_tag(raw, name: str, ns: str) -> str:
+    ds = raw.get("apps/v1", "DaemonSet", name, ns)
+    return [c for c in ds["spec"]["template"]["spec"]["containers"] if c["name"] == "driver-ctr"][0]["image"].rsplit(
+        ":", 1)[1]
+
+
+def run_state_machine(port: int, ns: str, card: str, card_variant: str, other_variant: str, nodes: list,
+                      cpu_nodes: list, capacity) -> dict:
+    """Drive the port's ``ClusterPolicyController`` over a ``CachedClient``
+    on one KubeSim (seeded with the port's CRD and sample, the card's node
+    and the fleet ``nodes``) through init, convergence, a steady pass,
+    three CR edits, the validator's DaemonSet lookups and the card's slice;
+    ``capacity(alloc)`` makes the card's node advertise ``alloc``
+    allocatable cards. Raises on any miss; returns the times."""
+    import threading
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.api.v1.clusterpolicy_types import State
+    from tpu_operator_torch.controllers import slice_status, state_manager
+    from tpu_operator_torch.kube import cache, kubesim, testing
+    from tpu_operator_torch.kube.frozen import thaw
+    from tpu_operator_torch.validator import workload_pods as wp
+
+    raw = kubesim.make_client(port)
+    nums = {}
+    stop = threading.Event()
+    cached = cache.CachedClient(kubesim.make_client(port), namespace=ns, resync_interval_s=0)
+    request = cached.live._request
+    ctl = None
+    namespace_env = os.environ.get(consts.OPERATOR_NAMESPACE_ENV)
+    os.environ[consts.OPERATOR_NAMESPACE_ENV] = ns
+    try:
+        testing.edit_clusterpolicy(raw, lambda cp: cp["spec"]["driver"].__setitem__(
+            "generationConfigs", {other_variant: PINNED_VERSION}))
+        if not cached.start_informers(stop, timeout_s=SYNC_TIMEOUT_S):
+            raise RuntimeError("the informers did not sync")
+        ctl = state_manager.ClusterPolicyController(cached)
+        assets = (state_manager.DEFAULT_ASSETS_DIR if os.path.isdir(state_manager.DEFAULT_ASSETS_DIR)
+                  else state_manager.PACKAGE_ASSETS_DIR)
+        if ctl.assets_dir != assets:
+            raise RuntimeError(f"assets from {ctl.assets_dir}, not {assets}")
+        label_ms = []
+        scan = ctl.label_tpu_nodes
+
+        def timed_scan():
+            t0 = time.perf_counter()
+            scan()
+            label_ms.append((time.perf_counter() - t0) * 1e3)
+
+        ctl.label_tpu_nodes = timed_scan
+
+        def cr():
+            return thaw(cached.get(consts.API_VERSION, consts.CLUSTER_POLICY_KIND, "cluster-policy"))
+
+        def one_pass():
+            ctl.begin_pass()
+            try:
+                ctl.init(cr())
+                return ctl.run_states()
+            finally:
+                ctl.end_pass()
+
+        def synced():
+            _wait_for("the cache to catch up with the server", lambda: _cache_caught_up(cached, raw, ns),
+                      SYNC_TIMEOUT_S)
+
+        # 2. init through the cache: the node labels
+        t_ready = time.perf_counter()
+        ctl.begin_pass()
+        try:
+            ctl.init(cr())
+            nums["init_ms"] = (time.perf_counter() - t_ready) * 1e3
+            nums["label_fanout_ms"] = label_ms[0]
+            stored = {n["metadata"]["name"]: n["metadata"].get("labels") or {} for n in raw.list("v1", "Node")}
+            want = {consts.TPU_PRESENT_LABEL: "true", consts.GENERATION_LABEL: card_variant,
+                    **{consts.DEPLOY_LABEL_PREFIX + c: "true" for c in consts.CONTAINER_WORKLOAD_COMPONENTS}}
+            missing = {k: stored[card].get(k) for k, v in want.items() if stored[card].get(k) != v}
+            labelled_cpu = [n for n in cpu_nodes if any(
+                k in (consts.TPU_PRESENT_LABEL, consts.GENERATION_LABEL) or k.startswith(consts.DEPLOY_LABEL_PREFIX)
+                for k in stored[n])]
+            if (missing or labelled_cpu or ctl.tpu_generations != {card_variant, other_variant}
+                    or ctl.tpu_node_count != len(nodes) - len(cpu_nodes)):
+                raise RuntimeError(f"init: the card's node lacks {missing}; CPU nodes labelled {labelled_cpu[:5]}; "
+                                   f"variants {ctl.tpu_generations}, {ctl.tpu_node_count} GPU nodes")
+            results = ctl.run_states()
+        finally:
+            ctl.end_pass()
+        log(f"state machine init through the cache: {nums['init_ms']:.1f} ms, of it the label fan-out over "
+            f"{len(nodes)} nodes {nums['label_fanout_ms']:.1f} ms; the card's node is {card_variant}; "
+            f"{len(cpu_nodes)} CPU nodes unlabelled; assets {ctl.assets_dir}")
+
+        # 3. converge: the simulated kubelets between passes
+        passes = 1
+        while True:
+            errors = {s: repr(o) for s, o in results if isinstance(o, Exception)}
+            waiting = [s for s, o in results if ctl.is_state_enabled(s) and o != State.READY]
+            if errors:
+                raise RuntimeError(f"pass {passes}: states raised {errors}")
+            if not waiting:
+                break
+            if passes >= MAX_PASSES:
+                raise RuntimeError(f"{passes} passes and {waiting} are not READY")
+            testing.simulate_kubelet_nodes(raw, ns, nodes)
+            synced()
+            results = one_pass()
+            passes += 1
+        nums["ready_ms"], nums["passes"] = (time.perf_counter() - t_ready) * 1e3, passes
+        names = sorted(_versions(raw, "apps/v1", "DaemonSet", ns))
+        drivers = {f"{consts.DRIVER_APP}-{v}" for v in (card_variant, other_variant)}
+        unnamed = [n for n in names if n not in set(consts.OPERAND_APPS.values()) | drivers]
+        disabled = [s for s in state_manager.SANDBOX_STATES if ctl.is_state_enabled(s)]
+        if (unnamed or not drivers <= set(names) or consts.DRIVER_APP in names or consts.VALIDATOR_APP not in names
+                or disabled or set(SANDBOX_APPS) & set(names)):
+            raise RuntimeError(f"DaemonSets {names}: not OPERAND_APPS {unnamed}, sandbox states enabled {disabled}")
+        log(f"converged: every enabled state READY after {passes} passes in {nums['ready_ms']:.1f} ms; "
+            f"{len(names)} DaemonSets {names}")
+
+        # 4. the steady state: no write, every control from the render cache
+        testing.simulate_kubelet_nodes(raw, ns, nodes)
+        synced()
+        requests = []
+        cached.live._request = lambda method, path, *a, **kw: requests.append((method, path)) or request(
+            method, path, *a, **kw)
+        t0 = time.perf_counter()
+        results = one_pass()
+        nums["steady_ms"] = (time.perf_counter() - t0) * 1e3
+        cached.live._request = request
+        writes = [r for r in requests if r[0] != "GET"]
+        hits = ctl.render_cache.stats()["last_pass"]
+        waiting = [s for s, o in results if ctl.is_state_enabled(s) and o != State.READY]
+        if writes or hits["misses"] or hits["hit_rate"] != 1.0 or waiting:
+            raise RuntimeError(f"steady pass: writes {writes[:5]}, render cache {hits}, not READY {waiting}")
+        log(f"steady pass: {nums['steady_ms']:.1f} ms, {len(requests)} requests of which 0 writes, "
+            f"{hits['hits']} controls from the render cache")
+
+        # 5. edits: an operand off, a driver version, a rollback
+        exporter = consts.OPERAND_APPS["tpu-metrics-exporter"]
+        testing.edit_clusterpolicy(raw, lambda cp: cp["spec"]["metricsExporter"].__setitem__("enabled", False))
+        synced()
+        one_pass()
+        if raw.get_or_none("apps/v1", "DaemonSet", exporter, ns) is not None:
+            raise RuntimeError(f"{exporter} outlived its operand's disable")
+        mine = f"{consts.DRIVER_APP}-{card_variant}"
+        old = _driver_tag(raw, mine, ns)
+        before = {d["metadata"]["name"]: d["metadata"]["annotations"][consts.LAST_APPLIED_HASH_ANNOTATION]
+                  for d in raw.list("apps/v1", "DaemonSet", ns)}
+        testing.edit_clusterpolicy(raw, lambda cp: cp["spec"]["driver"].__setitem__("version", EDITED_VERSION))
+        synced()
+        one_pass()
+        after = {d["metadata"]["name"]: d["metadata"]["annotations"][consts.LAST_APPLIED_HASH_ANNOTATION]
+                 for d in raw.list("apps/v1", "DaemonSet", ns)}
+        changed = sorted(n for n in after if before.get(n) != after[n])
+        pinned = _driver_tag(raw, f"{consts.DRIVER_APP}-{other_variant}", ns)
+        if changed != [mine] or _driver_tag(raw, mine, ns) != EDITED_VERSION or pinned != PINNED_VERSION:
+            raise RuntimeError(f"driver version edit changed {changed}; {mine} at {_driver_tag(raw, mine, ns)}, "
+                               f"the other variant at {pinned}")
+        record = json.dumps({"kind": "driver", "target": EDITED_VERSION, "previous": old, "state": "rolled-back"})
+        testing.edit_clusterpolicy(raw, lambda cp: cp["metadata"].setdefault("annotations", {}).__setitem__(
+            consts.ROLLOUT_STATE_ANNOTATION, record))
+        synced()
+        one_pass()
+        if (ctl.cp.spec.driver.version, ctl.raw_roll_targets["driver"], _driver_tag(raw, mine, ns)) != (
+                old, EDITED_VERSION, old):
+            raise RuntimeError(f"rollback: effective {ctl.cp.spec.driver.version}, raw {ctl.raw_roll_targets}, "
+                               f"{mine} at {_driver_tag(raw, mine, ns)}")
+        log(f"edits: {exporter} deleted when disabled; spec.driver.version {old} -> {EDITED_VERSION} moved only "
+            f"{changed}'s hash (the other variant pinned at {pinned}); rolled back, the effective version is {old}")
+
+        # 6. the validator's DaemonSet by the port's name
+        ds = raw.get("apps/v1", "DaemonSet", consts.VALIDATOR_APP, ns)["metadata"]
+        epoch = wp.gang_epoch(raw, ns)
+        pod = wp.cuda_workload_pod(card, ns)
+        wp.set_owner_daemonset(raw, pod, ns, consts.VALIDATOR_APP)
+        raw.create(pod)
+        owners = [(o["kind"], o["name"], o["uid"]) for o in
+                  raw.get("v1", "Pod", pod["metadata"]["name"], ns)["metadata"].get("ownerReferences", [])]
+        raw.delete("v1", "Pod", pod["metadata"]["name"], ns)
+        if not ds.get("uid") or epoch != f"{ds['uid'][:8]}-{ds.get('generation', 0)}" or owners != [
+                ("DaemonSet", consts.VALIDATOR_APP, ds["uid"])]:
+            raise RuntimeError(f"gang epoch {epoch!r} and owners {owners} for {consts.VALIDATOR_APP} {ds}")
+        log(f"{consts.VALIDATOR_APP}: gang epoch {epoch}; a workload pod owned by it")
+
+        # 7. the card's slice: READY with its cards, NOT_READY without
+        verdicts = []
+        for alloc in (None, 0):
+            capacity(alloc)
+            summary = slice_status.aggregate(raw, ns, [raw.get("v1", "Node", card)])
+            verdicts.append((summary.ready, summary.total,
+                             raw.get("v1", "Node", card)["metadata"]["labels"].get(consts.SLICE_READY_LABEL)))
+        degraded = [e["message"] for e in raw.list("v1", "Event", ns) if e.get("reason") == "SliceDegraded"]
+        if verdicts != [(1, 1, "true"), (0, 1, "false")] or not any(card in m for m in degraded):
+            raise RuntimeError(f"slice verdicts {verdicts}, SliceDegraded events {degraded}")
+        log(f"slice of the card's node: READY with its cards, NOT_READY once every card is unhealthy "
+            f"({degraded[0]})")
+        return nums
+    finally:
+        cached.live._request = request
+        stop.set()
+        cached.stop(timeout_s=30)
+        if ctl is not None:
+            for ex in (ctl._state_pool, ctl.writes._executor):
+                if ex is not None:
+                    ex.shutdown(wait=True)
+        pipe = testing._kubelet_pipelines.get(raw)
+        if pipe is not None and pipe._executor is not None:
+            pipe._executor.shutdown(wait=True)
+        if namespace_env is None:
+            os.environ.pop(consts.OPERATOR_NAMESPACE_ENV, None)
+        else:
+            os.environ[consts.OPERATOR_NAMESPACE_ENV] = namespace_env
+        if cached._threads:
+            raise RuntimeError(f"cache threads outlived the phase: {[t.name for t in cached._threads]}")
+
+
+def phase_state_machine() -> None:
+    """The state machine on the card's node (phase 12): the card's node from
+    feature discovery and the chip table joins a fleet of both H100
+    variants and CPU nodes on one KubeSim; ``run_state_machine`` drives the
+    port's ``ClusterPolicyController`` through the cache; the device plugin
+    over the real cards advertises the capacity the slice check reads."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.kube import kubelet_sim, kubesim, testing
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.plugin import server as plugin
+    from tpu_operator_torch.workloads.topology import device_generation
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    n = torch.cuda.device_count()
+    chips = gpuinfo.chip_summary()
+    card_variant = device_generation(torch.cuda.get_device_name(0))
+    if card_variant is None or len(chips) != n:
+        raise RuntimeError(f"{torch.cuda.get_device_name(0)!r} is no H100 variant, or the chip table {chips}")
+    other_variant = "h100-pcie" if card_variant != "h100-pcie" else "h100-sxm"
+    products = {"h100-pcie": "NVIDIA-H100-PCIe", "h100-sxm": testing.DEFAULT_PRODUCT}
+    ns = consts.DEFAULT_NAMESPACE
+    faulthandler.dump_traceback_later(STATE_MACHINE_TIMEOUT_S, exit=True)
+    with tempfile.TemporaryDirectory(prefix="cs12-") as tmp:
+        sim_server = kubesim.KubeSimServer(port=0).start()
+        sim = sim_server.sim
+        kubelet = plugin_server = None
+        try:
+            raw = kubesim.make_client(sim_server.port)
+            testing.seed_cluster(raw, ns, node_names=())
+            labels = tfd.gather_features({"metadata": {"name": OPERANDS_NODE, "labels": {}}},
+                                         dev_root="/dev", driver_root="/", env={}, chips=chips)
+            check_features(labels, n)
+            labels["kubernetes.io/hostname"] = OPERANDS_NODE
+            raw.create({"apiVersion": "v1", "kind": "Node", "metadata": {"name": OPERANDS_NODE, "labels": labels}})
+            same = sim.add_nodes(FLEET_NODES - 1 - OTHER_VARIANT_NODES - CPU_NODES)
+            other = sim.add_nodes(OTHER_VARIANT_NODES, name_prefix="other", template=testing.make_gpu_node(
+                "x", variant=other_variant, product=products[other_variant]))
+            cpus = sim.add_nodes(CPU_NODES, name_prefix="cpu", template=testing.make_cpu_node("x"), chips=0)
+            nodes = [OPERANDS_NODE] + same + other + cpus
+
+            socket_dir = os.path.join(tmp, "k")
+            kubelet = kubelet_sim.KubeletDeviceManager(kubesim.make_client(sim_server.port), OPERANDS_NODE,
+                                                       socket_dir)
+            kubelet.start()
+            servicer = plugin.GPUDevicePluginServicer(dev_root="/dev", driver_root="/", poll_interval_s=0.2,
+                                                      health_probe_interval_s=3600)
+            plugin_server = plugin.DevicePluginServer(servicer, socket_dir=socket_dir)
+            plugin_server.start()
+            plugin_server.register_with_kubelet(kubelet.kubelet_socket)
+            ids = sorted((str(c["index"]) for c in chips), key=int)
+
+            def capacity(alloc):
+                """``None``: the plugin's advertisement as it stands (every
+                card); 0: every card marked unhealthy. Waits for the node."""
+                if alloc == 0:
+                    for i in ids:
+                        servicer.mark_unhealthy(i)
+                want = n if alloc is None else alloc
+                _wait_for(f"allocatable {want} on the card's node", lambda: raw.get("v1", "Node", OPERANDS_NODE).get(
+                    "status", {}).get("allocatable", {}).get(consts.GPU_RESOURCE) == str(want), PLUGIN_TIMEOUT_S)
+                return want
+
+            nums = run_state_machine(sim_server.port, ns, OPERANDS_NODE, card_variant, other_variant, nodes, cpus,
+                                     capacity)
+        finally:
+            if plugin_server is not None:
+                plugin_server.stop()
+            if kubelet is not None:
+                kubelet.stop()
+            sim_server.stop()
+            faulthandler.cancel_dump_traceback_later()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the state machine launched kernels of the package: {launched}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"state machine on: {smi.stdout.strip() or smi.stderr.strip()}; {json.dumps(nums)}; "
+        f"no kernel of the package launched; phase 12 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -2887,6 +3231,7 @@ def main() -> int:
     phase_native()
     phase_control_plane()
     phase_control_plane_rw()
+    phase_state_machine()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

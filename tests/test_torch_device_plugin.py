@@ -667,9 +667,12 @@ def test_transport_free_path_needs_no_grpc_protobuf_or_yaml(dev_roots):
     without grpc). ``deviceplugin_pb2`` is protoc's output and needs
     protobuf by nature. The control plane's read and write paths (the
     informer cache, the write pipeline, Events, the warm journal,
-    log-once) and the state machine's leaf modules import too;
-    ``controllers.resource_manager`` is the one that needs PyYAML, and
-    only where it loads a state directory, so its import needs none."""
+    log-once), the state machine's leaf modules and the state machine
+    itself (the object controls, slice aggregation and the rollout
+    ledger's head) import too; ``controllers.resource_manager`` is the one
+    that needs PyYAML, and only where it loads a state directory (the
+    assets ``ClusterPolicyController.init`` reads), so no import needs
+    it."""
     code = f"""
 import sys
 for name in ("grpc", "google", "google.protobuf", "yaml"):
@@ -689,7 +692,9 @@ for mod in ("tpu_operator_torch", "tpu_operator_torch.workloads.topology",
             "tpu_operator_torch.kube.warm", "tpu_operator_torch.obs.logonce",
             "tpu_operator_torch.controllers.render_cache", "tpu_operator_torch.controllers.cluster_snapshot",
             "tpu_operator_torch.controllers.operator_metrics",
-            "tpu_operator_torch.controllers.resource_manager"):
+            "tpu_operator_torch.controllers.resource_manager",
+            "tpu_operator_torch.controllers.object_controls", "tpu_operator_torch.controllers.slice_status",
+            "tpu_operator_torch.controllers.rollout"):
     importlib.import_module(mod)
 from tpu_operator_torch.native import gpuinfo
 gpuinfo._load = lambda: None

@@ -112,12 +112,14 @@ def _client(resource, extra=()):
     ])
 
 
-def _validator_ds(generation=None):
-    meta = {"name": "tpu-operator-validator", "namespace": NS}
+def _validator_ds(name, generation=None):
+    """The validator DaemonSet under one side's name: the reference's
+    ``tpu-operator-validator``, the port's ``consts.VALIDATOR_APP``."""
+    meta = {"name": name, "namespace": NS}
     if generation is not None:
         meta["generation"] = generation
     return {"apiVersion": "apps/v1", "kind": "DaemonSet", "metadata": meta,
-            "spec": {"selector": {"matchLabels": {"app": "tpu-operator-validator"}}}}
+            "spec": {"selector": {"matchLabels": {"app": name}}}}
 
 
 def _kubelet(client, phases, schedule=True):
@@ -178,11 +180,12 @@ def test_stale_epoch_follower_matches_the_reference():
     the previous epoch's Succeeded gang fails naming it stale, as in the
     reference (``tests/test_validator.py:491-555``)."""
     outs = []
-    for mod, resource in ((ref, ref_consts.TPU_RESOURCE), (wp, consts.GPU_RESOURCE)):
-        client = _client(resource, [_validator_ds()])
+    for mod, resource, ds_name in ((ref, ref_consts.TPU_RESOURCE, "tpu-operator-validator"),
+                                   (wp, consts.GPU_RESOURCE, consts.VALIDATOR_APP)):
+        client = _client(resource, [_validator_ds(ds_name)])
         epoch = mod.gang_epoch(client, NS)
-        client.delete("apps/v1", "DaemonSet", "tpu-operator-validator", NS)
-        client.create(_validator_ds(generation=2))
+        client.delete("apps/v1", "DaemonSet", ds_name, NS)
+        client.create(_validator_ds(ds_name, generation=2))
         assert mod.gang_epoch(client, NS) not in ("", epoch)
         stale = mod.slice_gang_pod("g-1", "g-1", NS, 0, 1, chips="4")
         stale["metadata"]["labels"][mod.GANG_EPOCH_LABEL] = epoch
@@ -196,11 +199,11 @@ def test_stale_epoch_follower_matches_the_reference():
 
 
 def test_gang_pods_are_owned_by_the_validator_daemonset():
-    client = _client(consts.GPU_RESOURCE, [_validator_ds()])
+    client = _client(consts.GPU_RESOURCE, [_validator_ds(consts.VALIDATOR_APP)])
     _kubelet(client, ["Succeeded"])
     wp.run_slice_gang(client, NS, "s-1", [("g-1", "4")], retries=60, sleep_s=0.02)
     pod = client.get("v1", "Pod", f"{wp.gang_name('s-1')}-0", NS)
-    assert pod["metadata"]["ownerReferences"][0]["name"] == "tpu-operator-validator"
+    assert pod["metadata"]["ownerReferences"][0]["name"] == consts.VALIDATOR_APP == "gpu-operator-validator"
     assert pod["metadata"]["labels"][wp.GANG_EPOCH_LABEL] == wp.gang_epoch(client, NS)
 
 

@@ -35,6 +35,14 @@ SLICE_CONFIG_LABEL = f"{GROUP}/tpu.slice.config"
 SLICE_CONFIG_STATE_LABEL = f"{GROUP}/tpu.slice.config.state"
 # --- operator-managed labels (reference :64-106) ------------------------
 TPU_PRESENT_LABEL = f"{GROUP}/tpu.present"
+# the card variant a node's driver DaemonSet selects (the reference's
+# per-generation label, ``object_controls.py:463``); values from
+# ``workloads/topology.device_generation``
+GENERATION_LABEL = f"{GROUP}/tpu.generation"
+# a node's consistent-hash shard, stamped by a sharded operator (:263)
+SHARD_LABEL = f"{GROUP}/shard"
+# a node inside an announced host-maintenance window (:118)
+MAINTENANCE_STATE_LABEL = f"{GROUP}/maintenance"
 # an operand's deploy label = its DaemonSet's nodeSelector (:68)
 DEPLOY_LABEL_PREFIX = f"{GROUP}/tpu.deploy."
 COMPONENT_DRIVER = "driver"  # the reference's COMPONENT_LIBTPU
@@ -76,6 +84,10 @@ VM_WORKLOAD_COMPONENTS = [
 # NFD fallback: NVIDIA's PCI vendor id 10de present on the node (stands in
 # for NFD_TPU_PCI_LABEL, :51)
 NFD_GPU_PCI_LABEL = "feature.node.kubernetes.io/pci-10de.present"
+# emitted by the port's own NodeFeatureRule (vendor 10de, display class
+# 0302) where NFD's PCI labels are off; stands in for NFD_RULE_TPU_PCI_LABEL
+# (:59), and differs from it so a TPU node never reads as a GPU node
+NFD_RULE_GPU_PCI_LABEL = f"{GROUP}/gpu.pci.present"
 NFD_KERNEL_LABEL = "feature.node.kubernetes.io/kernel-version.full"
 NFD_OS_LABEL = "feature.node.kubernetes.io/system-os_release.ID"
 NFD_OS_VERSION_LABEL = "feature.node.kubernetes.io/system-os_release.VERSION_ID"
@@ -106,6 +118,10 @@ UPGRADE_ACTIVE_STATES = (
     UPGRADE_STATE_UNCORDON_REQUIRED,
 )
 REMEDIATION_STATE_LABEL = f"{GROUP}/remediation-state"
+REMEDIATION_STATE_SINCE_ANNOTATION = f"{GROUP}/remediation-state-since"
+# remediation's quarantine taint (:145-147), which every operand tolerates
+REPAIR_TAINT_KEY = f"{GROUP}/repair"
+REPAIR_PENDING = "pending"
 REMEDIATION_STATE_OBSERVED = "observed"
 REMEDIATION_STATE_RESTART = "restart-operands"
 REMEDIATION_STATE_REVALIDATE = "revalidate"
@@ -121,6 +137,13 @@ REMEDIATION_DISRUPTED_STATES = (
 REPARTITION_STATE_LABEL = f"{GROUP}/repartition-state"
 REPARTITION_STATE_ROLLING = "rolling"
 VALIDATOR_PERF_ANNOTATION = f"{GROUP}/validator-perf"
+VALIDATOR_PERF_BASELINE_ANNOTATION = f"{GROUP}/validator-perf-baseline"
+# the upgrade FSM's annotations (:218, :236, :245), ``libtpu`` -> ``driver``
+UPGRADE_ENABLED_ANNOTATION = f"{GROUP}/driver-upgrade-enabled"
+UPGRADE_PREVIOUS_VERSION_ANNOTATION = f"{GROUP}/driver-previous-version"
+UPGRADE_STATE_SINCE_ANNOTATION = f"{GROUP}/driver-upgrade-state-since"
+# the rollout ledger on the ClusterPolicy (:224)
+ROLLOUT_STATE_ANNOTATION = f"{GROUP}/rollout-state"
 # the driver version that tags the validator-perf readings, as GPU feature
 # discovery publishes it (stands in for TFD_LIBTPU_VERSION_LABEL, :256)
 DRIVER_VERSION_LABEL = "nvidia.com/cuda.driver-version.full"
@@ -130,6 +153,12 @@ GPU_PRODUCT_LABEL = "nvidia.com/gpu.product"
 GPU_COUNT_LABEL = "nvidia.com/gpu.count"
 GPU_MEMORY_LABEL = "nvidia.com/gpu.memory"  # MiB
 OPERATOR_NAMESPACE_ENV = "OPERATOR_NAMESPACE"
+PSA_LABEL_PREFIX = "pod-security.kubernetes.io/"
+# where the operator reads its operand manifests (stands in for
+# TPU_OPERATOR_ASSETS, ``state_manager.py:58``); without the directory the
+# package's own ``assets/`` serve
+ASSETS_ENV = "GPU_OPERATOR_ASSETS"
+DEFAULT_ASSETS_DIR = "/opt/gpu-operator"
 # the hash of the last-applied spec, on operand objects and the pods the
 # kubelet stamps from a DaemonSet template (reference :308)
 LAST_APPLIED_HASH_ANNOTATION = f"{GROUP}/last-applied-hash"
@@ -186,6 +215,12 @@ DRIVER_ROOT = "/run/nvidia/driver"
 # the CDI spec the container toolkit (operands/runtime_wire.py) writes and
 # the toolkit component reads
 CDI_SPEC_PATH = "/var/run/cdi/nvidia.yaml"
+# the proxy's trusted-CA bundle and the driver's artifact-source mounts
+# (stand in for TRUSTED_CA_MOUNT_DIR, LIBTPU_REPO_CONFIG_DIR and
+# LIBTPU_CERT_CONFIG_DIR, :301-303)
+TRUSTED_CA_MOUNT_DIR = "/etc/pki/gpu-operator/trusted-ca"
+DRIVER_REPO_CONFIG_DIR = "/etc/nvidia/driver/repo.d"
+DRIVER_CERT_CONFIG_DIR = "/etc/nvidia/driver/certs.d"
 # the slice manager's partition state (the reference's, cdi.py:24)
 PARTITION_FILE = "/run/tpu/partitions.json"
 # the kubelet's device-plugin directory and the plugin's socket in it

@@ -22,16 +22,28 @@ The objects around it cross through ``operand_app_from_reference`` (the
 (resource requests and limits ``google.com/tpu`` to ``nvidia.com/gpu``,
 an operand's ``app`` label and name), ``object_from_reference``, which
 converts any object by its kind (a node's capacity, allocatable and
-driver-version label; a DaemonSet's name and ``app`` labels), and
+operator labels; a DaemonSet's name, ``app`` labels and node selector, the
+validator's and the driver's init containers and the status files), and
 ``warm_journal_from_reference``, which maps every informer snapshot of a
 warm journal through it; the app, pod and journal converters have their
 way back.
+
+Two reference names have no fixed counterpart and cross through a table
+the caller gives (``variants``, reference generation to card variant, e.g.
+``{"v5e": "h100-sxm"}``): the value of the generation label on a node and
+on a driver DaemonSet, and the suffix of a per-generation driver
+DaemonSet (``tpu-libtpu-daemonset-v5e`` is ``gpu-driver-daemonset-h100-sxm``).
+Without the table they cross unchanged. The rollout ledger on a
+ClusterPolicy (``consts.ROLLOUT_STATE_ANNOTATION``) crosses with its
+driver kind renamed (``libtpu`` is ``driver``).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Callable, Dict, Tuple
+import json
+import re
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -134,16 +146,39 @@ def _rename_tree(tree: Any, path: Path, keys: Dict[Path, str], value: Callable) 
     return value(path, tree)
 
 
+# the rollout ledger's driver kind: the reference's KIND_LIBTPU, the port's KIND_DRIVER
+ROLLOUT_KINDS = {"libtpu": "driver"}
+
+
+def _rollout_record(obj: Dict[str, Any], forward: bool) -> Dict[str, Any]:
+    """``obj`` with the rollout ledger's kind renamed (a garbled ledger
+    crosses as it is)."""
+    ann = (obj.get("metadata") or {}).get("annotations") or {}
+    raw = ann.get(consts.ROLLOUT_STATE_ANNOTATION)
+    if not raw:
+        return obj
+    try:
+        rec = json.loads(raw)
+    except (ValueError, TypeError):
+        return obj
+    kinds = ROLLOUT_KINDS if forward else {new: old for old, new in ROLLOUT_KINDS.items()}
+    if isinstance(rec, dict) and rec.get("kind") in kinds:
+        rec["kind"] = kinds[rec["kind"]]
+        ann[consts.ROLLOUT_STATE_ANNOTATION] = json.dumps(rec, sort_keys=True)
+    return obj
+
+
 def clusterpolicy_from_reference(obj: Dict[str, Any]) -> Dict[str, Any]:
     """The JAX package's ClusterPolicy object as the port's: sub-specs,
-    image names, the driver's paths and the accelerator's names renamed."""
-    return _rename_tree(obj, (), *_renamer(True))
+    image names, the driver's paths and the accelerator's names renamed,
+    and the rollout ledger's kind."""
+    return _rollout_record(_rename_tree(obj, (), *_renamer(True)), True)
 
 
 def clusterpolicy_to_reference(obj: Dict[str, Any]) -> Dict[str, Any]:
     """The port's ClusterPolicy object as the JAX package's (the inverse of
     ``clusterpolicy_from_reference``)."""
-    return _rename_tree(obj, (), *_renamer(False))
+    return _rollout_record(_rename_tree(obj, (), *_renamer(False)), False)
 
 
 def _text(s: str) -> str:
@@ -227,23 +262,68 @@ def _rename_keys(d: Dict[str, Any], fn: Callable[[str], str]) -> Dict[str, Any]:
     return {fn(k): v for k, v in d.items()}
 
 
-def _labels(meta: Dict[str, Any], forward: bool, rename: bool = False) -> None:
-    """The ``app`` label and the driver's version label of ``meta``; with
+# operator label keys that name the driver: the reference's to the port's
+LABEL_KEYS = {
+    REF_LIBTPU_VERSION_LABEL: consts.DRIVER_VERSION_LABEL,
+    consts.DEPLOY_LABEL_PREFIX + "libtpu": consts.DEPLOY_LABEL_PREFIX + consts.COMPONENT_DRIVER,
+    f"{consts.GROUP}/libtpu-upgrade-state": consts.UPGRADE_STATE_LABEL,
+}
+# the validator's and the driver's init containers, and the status files:
+# the reference's to the port's
+INIT_CONTAINERS = {
+    "libtpu-validation": "driver-validation",
+    "runtime-validation": "toolkit-validation",
+    "jax-validation": "cuda-validation",
+    "libtpu-manager": "driver-manager",
+}
+STATUS_FILES = {
+    ".libtpu-ctr-ready": consts.STATUS_FILE_DRIVER_CTR,
+    "libtpu-ready": consts.STATUS_FILE_DRIVER,
+    "runtime-ready": consts.STATUS_FILE_TOOLKIT,
+    "jax-ready": consts.STATUS_FILE_CUDA,
+}
+
+
+def _table(table: Dict[str, str], forward: bool) -> Dict[str, str]:
+    return dict(table) if forward else {new: old for old, new in table.items()}
+
+
+def _variant(value: str, variants: Optional[Dict[str, str]], forward: bool) -> str:
+    if not variants:
+        return value
+    return _table(variants, forward).get(value, value)
+
+
+def _driver_app(app: str, variants: Optional[Dict[str, str]], forward: bool) -> str:
+    """A per-generation driver DaemonSet's name or app with its suffix
+    through ``variants`` (any other name unchanged)."""
+    base = consts.DRIVER_APP if forward else "tpu-libtpu-daemonset"
+    if variants and app.startswith(base + "-"):
+        return f"{base}-{_variant(app[len(base) + 1:], variants, forward)}"
+    return app
+
+
+def _rename_labels(labels: Dict[str, Any], forward: bool, variants=None) -> None:
+    for old, new in _table(LABEL_KEYS, forward).items():
+        if old in labels:
+            labels[new] = labels.pop(old)
+    if consts.GENERATION_LABEL in labels:
+        labels[consts.GENERATION_LABEL] = _variant(labels[consts.GENERATION_LABEL], variants, forward)
+
+
+def _labels(meta: Dict[str, Any], forward: bool, rename: bool = False, variants=None) -> None:
+    """The ``app`` label and the operator's label keys of ``meta``; with
     ``rename``, an operand's name too (``<app>`` or ``<app>-<node>``)."""
     labels = meta.get("labels")
     if not labels:
         return
     app = operand_app_from_reference if forward else operand_app_to_reference
     if "app" in labels:
-        mapped = app(labels["app"])
+        mapped = _driver_app(app(labels["app"]), variants, forward)
         if rename and mapped != labels["app"] and "name" in meta:
-            meta["name"] = app(meta["name"])
+            meta["name"] = _driver_app(app(meta["name"]), variants, forward)
         labels["app"] = mapped
-    old, new = (REF_LIBTPU_VERSION_LABEL, consts.DRIVER_VERSION_LABEL)
-    if not forward:
-        old, new = new, old
-    if old in labels:
-        labels[new] = labels.pop(old)
+    _rename_labels(labels, forward, variants)
 
 
 def _pod(pod: Dict[str, Any], forward: bool) -> Dict[str, Any]:
@@ -270,9 +350,9 @@ def pod_to_reference(pod: Dict[str, Any]) -> Dict[str, Any]:
     return _pod(pod, False)
 
 
-def _node(node: Dict[str, Any], forward: bool) -> Dict[str, Any]:
+def _node(node: Dict[str, Any], forward: bool, variants=None) -> Dict[str, Any]:
     out = copy.deepcopy(node)
-    _labels(out.get("metadata", {}), forward)
+    _labels(out.get("metadata", {}), forward, variants=variants)
     status = out.get("status") or {}
     for field in ("capacity", "allocatable"):
         if status.get(field):
@@ -280,33 +360,54 @@ def _node(node: Dict[str, Any], forward: bool) -> Dict[str, Any]:
     return out
 
 
-def _daemonset(ds: Dict[str, Any], forward: bool) -> Dict[str, Any]:
+_STATUS_PATH = re.compile(re.escape(consts.VALIDATION_DIR) + r"/([\w.-]+)")
+
+
+def _status_files(text: str, forward: bool) -> str:
+    """The barrier files named in a shell command."""
+    table = _table(STATUS_FILES, forward)
+    return _STATUS_PATH.sub(lambda m: f"{consts.VALIDATION_DIR}/{table.get(m.group(1), m.group(1))}", text)
+
+
+def _daemonset(ds: Dict[str, Any], forward: bool, variants=None) -> Dict[str, Any]:
     out = copy.deepcopy(ds)
-    _labels(out.get("metadata", {}), forward, rename=True)
+    _labels(out.get("metadata", {}), forward, rename=True, variants=variants)
     spec = out.get("spec") or {}
     match = (spec.get("selector") or {}).get("matchLabels")
     if match:
-        _labels({"labels": match}, forward)
-    _labels((spec.get("template") or {}).get("metadata") or {}, forward)
+        _labels({"labels": match}, forward, variants=variants)
+    tmpl = spec.get("template") or {}
+    _labels(tmpl.get("metadata") or {}, forward, variants=variants)
+    pod_spec = tmpl.get("spec") or {}
+    if pod_spec.get("nodeSelector"):
+        _rename_labels(pod_spec["nodeSelector"], forward, variants)
+    names = _table(INIT_CONTAINERS, forward)
+    for c in pod_spec.get("initContainers") or []:
+        c["name"] = names.get(c.get("name"), c.get("name"))
+    for c in (pod_spec.get("initContainers") or []) + (pod_spec.get("containers") or []):
+        pre_stop = ((c.get("lifecycle") or {}).get("preStop") or {}).get("exec") or {}
+        if pre_stop.get("command"):
+            pre_stop["command"] = [_status_files(part, forward) for part in pre_stop["command"]]
     return out
 
 
-def _object_converter(kind: str, forward: bool) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
+def _object_converter(kind: str, forward: bool, variants=None) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
     if kind == consts.CLUSTER_POLICY_KIND:
         return clusterpolicy_from_reference if forward else clusterpolicy_to_reference
     if kind == "Pod":
         return lambda o: _pod(o, forward)
     if kind == "Node":
-        return lambda o: _node(o, forward)
+        return lambda o: _node(o, forward, variants)
     if kind == "DaemonSet":
-        return lambda o: _daemonset(o, forward)
+        return lambda o: _daemonset(o, forward, variants)
     return copy.deepcopy
 
 
-def object_from_reference(obj: Dict[str, Any]) -> Dict[str, Any]:
+def object_from_reference(obj: Dict[str, Any], variants: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
     """One reference object as the port's, by its kind: a ClusterPolicy,
-    pod, node or DaemonSet through its converter, any other kind copied."""
-    return _object_converter(obj.get("kind", ""), True)(obj)
+    pod, node or DaemonSet through its converter, any other kind copied.
+    ``variants`` maps the reference's generations to card variants."""
+    return _object_converter(obj.get("kind", ""), True, variants)(obj)
 
 
 def _journal(payload: Dict[str, Any], forward: bool) -> Dict[str, Any]:

@@ -155,9 +155,10 @@ def plugin_workload_pod(node_name: str, namespace: str, image: str = "") -> dict
 
 
 def gang_epoch(client, namespace: str) -> str:
-    """Current gang epoch: validator DS uid+generation ('' degrades the
-    check away when the DS does not exist, e.g. bare CLI runs)."""
-    ds = client.get_or_none("apps/v1", "DaemonSet", "tpu-operator-validator", namespace)
+    """Current gang epoch: the validator DaemonSet's (``consts.VALIDATOR_APP``)
+    uid+generation ('' degrades the check away when the DS does not exist,
+    e.g. bare CLI runs)."""
+    ds = client.get_or_none("apps/v1", "DaemonSet", consts.VALIDATOR_APP, namespace)
     if ds is None:
         return ""
     meta = ds.get("metadata", {})
@@ -266,12 +267,12 @@ def run_slice_gang(
             pod["metadata"]["labels"][GANG_EPOCH_LABEL] = epoch
     if spawn:
         svc = gang_service(slice_id, namespace)
-        set_owner_daemonset(client, svc, namespace, "tpu-operator-validator")
+        set_owner_daemonset(client, svc, namespace, consts.VALIDATOR_APP)
         client.delete_if_exists("v1", "Service", name, namespace)
         client.create(svc)
         for pod in pods:
             client.delete_if_exists("v1", "Pod", pod["metadata"]["name"], namespace)
-            set_owner_daemonset(client, pod, namespace, "tpu-operator-validator")
+            set_owner_daemonset(client, pod, namespace, consts.VALIDATOR_APP)
             client.create(pod)
     phases: dict = {}
     for _ in range(retries):
@@ -348,7 +349,7 @@ def run_to_completion(
     for legacy in ("tpu-cuda-validator", "tpu-plugin-validator"):
         if name != legacy and name.startswith(legacy + "-"):
             client.delete_if_exists("v1", "Pod", legacy, ns)
-    set_owner_daemonset(client, pod, ns, "tpu-operator-validator")
+    set_owner_daemonset(client, pod, ns, consts.VALIDATOR_APP)
     client.create(pod)
     for _ in range(retries):
         live = client.get_or_none("v1", "Pod", name, ns)
