@@ -214,6 +214,38 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    init, label fan-out, passes to READY and steady-pass times and the
    card's name and power limit are logged; this path launches none of
    K1-K7c;
+13. (after 12, before 4) the node FSMs on the card's node, under a
+   watchdog of ``NODE_FSMS_TIMEOUT_S``, on one KubeSim over loopback with
+   ``FSM_FLEET_NODES`` nodes: the card's node (feature discovery's labels
+   and the slice labels of a 4-host deployment) is one host of
+   ``slice-card`` beside 3 simulated members, 7 more 4-host slices,
+   ``FSM_SOLO_NODES`` single-host nodes of the other H100 variant and
+   ``FSM_CPU_NODES`` CPU nodes; the device plugin over the real cards
+   serves the card's node; a ``ClusterPolicyController`` over a
+   ``CachedClient`` converges the operands (``run_node_fsms``). Three
+   walks through the cache: a ``spec.driver.version`` edit under an
+   ``upgradePolicy`` (``maxParallelUpgrades`` ``FSM_FLEET_NODES``,
+   ``maxUnavailable`` 25%, drain on) rolls every GPU node to
+   ``upgrade-done`` within ``MAX_FSM_PASSES`` passes of
+   ``ClusterUpgradeStateManager``, the card's node through every state in
+   order, cordoned from ``cordon-required`` until its slice uncordons
+   together, its workload pod (cards from ``kubelet.allocate``) evicted
+   through the eviction subresource, its driver pod recreated at the new
+   hash, its previous version recorded from ``DRIVER_VERSION_LABEL``, the
+   four members of ``slice-card`` active in the same passes, at most 25%
+   of the slices disrupted in any pass, a PodDisruptionBudget pinning a
+   second slice in ``drain-required`` until it is deleted, no CPU node
+   labelled, and one more pass writing nothing; remediation
+   (``backoffSeconds`` 0) takes the card's node, every card marked
+   unhealthy, through the restart rung (its ``gpu-*`` operand pods
+   deleted, a ``user-job`` pod left) to quarantine (cordon, repair taint
+   and label), touching no other node, and back to ``recovered`` once the
+   cards are healthy; the re-partition roll to ``all-1x1`` admits
+   ``slice-card`` (remediation then skips the card's node), the port's
+   ``SliceManager`` applies it on the card's node over the KubeSim
+   client, and every GPU node ends on the layout; the passes and times and
+   the card's name and power limit are logged; this path launches none of
+   K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -2898,6 +2930,30 @@ def _driver_tag(raw, name: str, ns: str) -> str:
         ":", 1)[1]
 
 
+def _stop_controller(cached, stop, ctl, raw, namespace_env) -> None:
+    """Stop what a controller phase started (the cache's informers, the
+    controller's pools, the simulated kubelet's pipeline) and restore the
+    operator namespace; raise if a cache thread outlives it."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.kube import testing
+
+    stop.set()
+    cached.stop(timeout_s=30)
+    if ctl is not None:
+        for ex in (ctl._state_pool, ctl.writes._executor):
+            if ex is not None:
+                ex.shutdown(wait=True)
+    pipe = testing._kubelet_pipelines.get(raw)
+    if pipe is not None and pipe._executor is not None:
+        pipe._executor.shutdown(wait=True)
+    if namespace_env is None:
+        os.environ.pop(consts.OPERATOR_NAMESPACE_ENV, None)
+    else:
+        os.environ[consts.OPERATOR_NAMESPACE_ENV] = namespace_env
+    if cached._threads:
+        raise RuntimeError(f"cache threads outlived the phase: {[t.name for t in cached._threads]}")
+
+
 def run_state_machine(port: int, ns: str, card: str, card_variant: str, other_variant: str, nodes: list,
                       cpu_nodes: list, capacity) -> dict:
     """Drive the port's ``ClusterPolicyController`` over a ``CachedClient``
@@ -3089,21 +3145,7 @@ def run_state_machine(port: int, ns: str, card: str, card_variant: str, other_va
         return nums
     finally:
         cached.live._request = request
-        stop.set()
-        cached.stop(timeout_s=30)
-        if ctl is not None:
-            for ex in (ctl._state_pool, ctl.writes._executor):
-                if ex is not None:
-                    ex.shutdown(wait=True)
-        pipe = testing._kubelet_pipelines.get(raw)
-        if pipe is not None and pipe._executor is not None:
-            pipe._executor.shutdown(wait=True)
-        if namespace_env is None:
-            os.environ.pop(consts.OPERATOR_NAMESPACE_ENV, None)
-        else:
-            os.environ[consts.OPERATOR_NAMESPACE_ENV] = namespace_env
-        if cached._threads:
-            raise RuntimeError(f"cache threads outlived the phase: {[t.name for t in cached._threads]}")
+        _stop_controller(cached, stop, ctl, raw, namespace_env)
 
 
 def phase_state_machine() -> None:
@@ -3189,6 +3231,501 @@ def phase_state_machine() -> None:
         f"no kernel of the package launched; phase 12 {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 13: the node FSMs on the card's node
+NODE_FSMS_TIMEOUT_S = 900  # the phase's watchdog
+FSM_FLEET_NODES = 256  # an upgrade pass's cost grows faster than the fleet (PERF.md §7)
+FSM_SLICE_HOSTS = 4
+FSM_SLICES = 8  # 4-host slices, the card's among them
+FSM_CPU_NODES = 24
+FSM_SOLO_NODES = FSM_FLEET_NODES - FSM_SLICES * FSM_SLICE_HOSTS - FSM_CPU_NODES  # single hosts of the other variant
+MAX_FSM_PASSES = 64  # passes a walk may take; one that needs more fails
+CARD_SLICE = "slice-card"
+PDB_SLICE = "slice-1"  # the slice a PodDisruptionBudget pins
+FSM_VERSION = "550.144.03"  # the spec.driver.version the roll goes to
+FSM_BUDGET = "25%"
+FSM_LAYOUT = "all-1x1"  # the layout the re-partition rolls to
+UPGRADE_ORDER = ("upgrade-required", "cordon-required", "wait-for-jobs-required", "pod-deletion-required",
+                 "drain-required", "pod-restart-required", "validation-required", "uncordon-required",
+                 "upgrade-done")
+
+
+def _fsm_pod(name: str, ns: str, node: str, labels: dict, cards: int = 0, owned: bool = True) -> dict:
+    pod = {"apiVersion": "v1", "kind": "Pod", "metadata": {"name": name, "namespace": ns, "labels": labels},
+           "spec": {"nodeName": node, "containers": [{"name": "main", "resources": {}}]},
+           "status": {"phase": "Running", "containerStatuses": [{"ready": True}]}}
+    if cards:
+        pod["spec"]["containers"][0]["resources"] = {"limits": {"nvidia.com/gpu": str(cards)}}
+    if owned:
+        pod["metadata"]["ownerReferences"] = [{"apiVersion": "batch/v1", "kind": "Job", "name": name, "uid": name}]
+    return pod
+
+
+def fsm_fleet(raw, sim, card: str, labels: dict, card_variant: str) -> tuple:
+    """Create the card's node (``labels``, plus the slice labels of one
+    host of ``CARD_SLICE``) and the simulated fleet around it: its 3
+    slice peers and ``FSM_SLICES - 1`` more 4-host slices of the card's
+    variant, ``FSM_SOLO_NODES`` single hosts of the other H100 variant and
+    ``FSM_CPU_NODES`` CPU nodes. Returns ``(slices, nodes, cpu_nodes,
+    other_variant)``, ``slices`` each 4-host slice's members."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.kube import testing
+
+    other_variant = "h100-pcie" if card_variant != "h100-pcie" else "h100-sxm"
+    products = {"h100-pcie": "NVIDIA-H100-PCIe", "h100-sxm": testing.DEFAULT_PRODUCT}
+    hosts = {consts.TFD_SLICE_HOSTS_LABEL: str(FSM_SLICE_HOSTS)}
+    labels = {**labels, "kubernetes.io/hostname": card, consts.TFD_SLICE_ID_LABEL: CARD_SLICE, **hosts}
+    raw.create({"apiVersion": "v1", "kind": "Node", "metadata": {"name": card, "labels": labels}})
+    mine = testing.make_gpu_node("x", variant=card_variant, product=products.get(card_variant, "NVIDIA-H100-NVL"))
+    slices = {CARD_SLICE: [card] + sim.add_nodes(FSM_SLICE_HOSTS - 1, name_prefix="card-peer", template=mine,
+                                                 extra_labels={consts.TFD_SLICE_ID_LABEL: CARD_SLICE, **hosts})}
+    for i in range(1, FSM_SLICES):
+        slices[f"slice-{i}"] = sim.add_nodes(FSM_SLICE_HOSTS, name_prefix=f"slice-{i}-host", template=mine,
+                                             extra_labels={consts.TFD_SLICE_ID_LABEL: f"slice-{i}", **hosts})
+    solos = sim.add_nodes(FSM_SOLO_NODES, name_prefix="solo", template=testing.make_gpu_node(
+        "x", variant=other_variant, product=products[other_variant]))
+    cpus = sim.add_nodes(FSM_CPU_NODES, name_prefix="cpu", template=testing.make_cpu_node("x"), chips=0)
+    return slices, [m for names in slices.values() for m in names] + solos + cpus, cpus, other_variant
+
+
+def run_node_fsms(port: int, ns: str, card: str, other_variant: str, slices: dict, nodes: list, cpu_nodes: list,
+                  capacity, workload, slice_manager: dict) -> dict:
+    """Converge the port's ``ClusterPolicyController`` over a ``CachedClient``
+    on one KubeSim (seeded with the port's CRD and sample, the card's node
+    and the fleet ``nodes``; ``other_variant``'s driver pinned in
+    ``generationConfigs``, so each variant has its own driver DaemonSet),
+    then walk the three node FSMs through the cache: the rolling driver upgrade, remediation and the re-partition
+    roll. ``slices`` maps each 4-host slice id to its members (the card's
+    is ``CARD_SLICE``); ``capacity(alloc)`` makes the card's node
+    advertise every card (``None``) or none (0); ``workload()`` is the
+    pod that holds the card's cards; ``slice_manager`` the keyword
+    arguments of the card's ``SliceManager``. Raises on any miss; returns
+    the times."""
+    import threading
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.api.v1.clusterpolicy_types import State
+    from tpu_operator_torch.controllers import remediation, repartition, state_manager
+    from tpu_operator_torch.kube import cache, kubesim, testing
+    from tpu_operator_torch.kube.client import ConflictError, has_taint
+    from tpu_operator_torch.kube.frozen import thaw
+    from tpu_operator_torch.sliceman import slice_manager as sm
+    from tpu_operator_torch.upgrade import upgrade_state as us
+
+    raw = kubesim.make_client(port)
+    nums = {}
+    stop = threading.Event()
+    cached = cache.CachedClient(kubesim.make_client(port), namespace=ns, resync_interval_s=0)
+    request = cached.live._request
+    requests = []  # (method, path) of each request the FSMs' client issues
+    cached.live._request = lambda method, path, *a, **kw: requests.append((method, path)) or request(
+        method, path, *a, **kw)
+    ctl = None
+    namespace_env = os.environ.get(consts.OPERATOR_NAMESPACE_ENV)
+    os.environ[consts.OPERATOR_NAMESPACE_ENV] = ns
+    cpus = set(cpu_nodes)
+    gpu_names = [n for n in nodes if n not in cpus]
+    members = slices[CARD_SLICE]
+    slice_of = {m: sid for sid, names in slices.items() for m in names}
+    n_slices = len({slice_of.get(n, n) for n in gpu_names})
+    cap = us.parse_max_unavailable(FSM_BUDGET, n_slices)
+    try:
+        if not cached.start_informers(stop, timeout_s=SYNC_TIMEOUT_S):
+            raise RuntimeError("the informers did not sync")
+        ctl = state_manager.ClusterPolicyController(cached)
+
+        def cr():
+            return thaw(cached.get(consts.API_VERSION, consts.CLUSTER_POLICY_KIND, "cluster-policy"))
+
+        def synced():
+            _wait_for("the cache to catch up with the server", lambda: _cache_caught_up(cached, raw, ns),
+                      SYNC_TIMEOUT_S)
+
+        def controller_pass(states=True):
+            ctl.begin_pass()
+            try:
+                ctl.init(cr())
+                return ctl.run_states() if states else []
+            finally:
+                ctl.end_pass()
+
+        def edit(fn):
+            testing.edit_clusterpolicy(raw, fn)
+            synced()
+
+        def gpu_nodes():
+            return [n for n in cached.list("v1", "Node") if state_manager.has_gpu_labels(n)]
+
+        def labels():
+            return {n["metadata"]["name"]: (n["metadata"].get("labels") or {}, n.get("spec") or {})
+                    for n in raw.list("v1", "Node")}
+
+        def kubelet():
+            testing.simulate_kubelet_nodes(raw, ns, nodes)
+            synced()
+
+        # 1. the operands converge, one driver DaemonSet a variant
+        version = cr()["spec"]["driver"]["version"]
+        edit(lambda cp: cp["spec"]["driver"].__setitem__("generationConfigs", {other_variant: version}))
+        t0 = time.perf_counter()
+        for passes in range(1, MAX_PASSES + 1):
+            results = controller_pass()
+            errors = {s: repr(o) for s, o in results if isinstance(o, Exception)}
+            waiting = [s for s, o in results if ctl.is_state_enabled(s) and o != State.READY]
+            if errors:
+                raise RuntimeError(f"pass {passes}: states raised {errors}")
+            kubelet()
+            if not waiting:
+                break
+        else:
+            raise RuntimeError(f"{MAX_PASSES} passes and {waiting} are not READY")
+        drivers = sorted(d["metadata"]["name"] for d in raw.list("apps/v1", "DaemonSet", ns)
+                         if d["metadata"]["name"].startswith(consts.DRIVER_APP + "-"))
+        if len(drivers) != 2 or ctl.tpu_node_count != len(gpu_names):
+            raise RuntimeError(f"driver DaemonSets {drivers}; {ctl.tpu_node_count} GPU nodes of {len(gpu_names)}")
+        log(f"node FSMs: {len(gpu_names)} GPU nodes in {n_slices} slices ({len(slices)} of {FSM_SLICE_HOSTS} hosts), "
+            f"{len(cpus)} CPU nodes; operands READY after {passes} passes in {(time.perf_counter() - t0) * 1e3:.1f} ms; "
+            f"driver DaemonSets {drivers}")
+
+        # 2. the rolling driver upgrade
+        try:
+            raw.create({"apiVersion": "v1", "kind": "Namespace", "metadata": {"name": "default"}})
+        except ConflictError:
+            pass
+        pod = workload()
+        raw.create(pod)
+        pinned_host = slices[PDB_SLICE][0]
+        raw.create(_fsm_pod("gang-0", "default", pinned_host, {"app": "gang"}, cards=1))
+        raw.create({"apiVersion": "policy/v1", "kind": "PodDisruptionBudget",
+                    "metadata": {"name": "gang-pdb", "namespace": "default"},
+                    "spec": {"minAvailable": 1, "selector": {"matchLabels": {"app": "gang"}}}})
+        card_version = _labels_of(raw, card).get(consts.DRIVER_VERSION_LABEL)
+        old = next(p["metadata"] for p in raw.list("v1", "Pod", ns, field_selector={"spec.nodeName": card})
+                   if p["metadata"]["labels"]["app"] in drivers)
+        driver_pod, drv = old["name"], old["labels"]["app"]
+        before = {d: raw.get("apps/v1", "DaemonSet", d, ns)["spec"]["template"]["metadata"]["annotations"][
+            consts.LAST_APPLIED_HASH_ANNOTATION] for d in drivers}
+        edit(lambda cp: cp["spec"]["driver"].update(version=FSM_VERSION, generationConfigs={
+            other_variant: FSM_VERSION}, upgradePolicy={
+            "autoUpgrade": True, "maxParallelUpgrades": FSM_FLEET_NODES, "maxUnavailable": FSM_BUDGET,
+            "drain": {"enable": True, "timeoutSeconds": 300}}))
+        controller_pass()
+        synced()
+        after = {d: raw.get("apps/v1", "DaemonSet", d, ns)["spec"]["template"]["metadata"]["annotations"][
+            consts.LAST_APPLIED_HASH_ANNOTATION] for d in drivers}
+        policy = ctl.cp.spec.driver.upgrade_policy
+        if any(before[d] == after[d] for d in drivers) or policy is None or not policy.auto_upgrade:
+            raise RuntimeError(f"the version edit left driver hashes {before} -> {after}; policy {policy}")
+        mgr = us.ClusterUpgradeStateManager(cached, ns)
+        active = set(us.ACTIVE_STATES)
+        seen, pass_ms, worst = [], [], 0
+        pinned_passes, pdb_deleted_at = 0, None
+        cordoned_at = uncordoned_at = None
+        requests.clear()
+        t_walk = time.perf_counter()
+        for passes in range(1, MAX_FSM_PASSES + 1):
+            t0 = time.perf_counter()
+            state = mgr.build_state()
+            entered = {e.node["metadata"]["name"]: e.state for e in state.all()}.get(card)
+            mgr.apply_state(state, policy)
+            pass_ms.append((time.perf_counter() - t0) * 1e3)
+            now = labels()
+            for s in (entered, now[card][0].get(consts.UPGRADE_STATE_LABEL)):
+                if s and (not seen or seen[-1] != s):
+                    seen.append(s)
+            card_state, unsched = seen[-1], now[card][1].get("unschedulable", False)
+            if card_state in active - {us.STATE_CORDON_REQUIRED} and not unsched:
+                raise RuntimeError(f"pass {passes}: the card's node is {card_state} but schedulable")
+            if unsched and cordoned_at is None:
+                cordoned_at = time.perf_counter()
+            if cordoned_at and not unsched and uncordoned_at is None:
+                uncordoned_at = time.perf_counter()
+                if {now[m][0].get(consts.UPGRADE_STATE_LABEL) for m in members} != {us.STATE_DONE} or any(
+                        now[m][1].get("unschedulable") for m in members):
+                    raise RuntimeError(f"pass {passes}: {CARD_SLICE} did not return to service together: "
+                                       f"{ {m: now[m][0].get(consts.UPGRADE_STATE_LABEL) for m in members} }")
+            together = {now[m][0].get(consts.UPGRADE_STATE_LABEL) in active for m in members}
+            if len(together) != 1:
+                raise RuntimeError(f"pass {passes}: {CARD_SLICE}'s members are not active together: "
+                                   f"{ {m: now[m][0].get(consts.UPGRADE_STATE_LABEL) for m in members} }")
+            disrupted = {slice_of.get(n, n) for n in gpu_names if now[n][0].get(consts.UPGRADE_STATE_LABEL) in (
+                active | {us.STATE_FAILED})}
+            worst = max(worst, len(disrupted))
+            if len(disrupted) > cap:
+                raise RuntimeError(f"pass {passes}: {len(disrupted)} slices disrupted, over {FSM_BUDGET} ({cap})")
+            if pdb_deleted_at is None and PDB_SLICE in mgr.pinned_slices:
+                held = {now[m][0].get(consts.UPGRADE_STATE_LABEL) for m in slices[PDB_SLICE]}
+                if held != {us.STATE_DRAIN_REQUIRED} or raw.get_or_none("v1", "Pod", "gang-0", "default") is None:
+                    raise RuntimeError(f"pass {passes}: {PDB_SLICE} pinned but {held}")
+                pinned_passes += 1
+                if pinned_passes == 2:
+                    raw.delete("policy/v1", "PodDisruptionBudget", "gang-pdb", "default")
+                    pdb_deleted_at = passes
+            if all(now[n][0].get(consts.UPGRADE_STATE_LABEL) == us.STATE_DONE for n in gpu_names):
+                break
+            kubelet()
+        else:
+            raise RuntimeError(f"{MAX_FSM_PASSES} upgrade passes and "
+                               f"{sum(now[n][0].get(consts.UPGRADE_STATE_LABEL) != us.STATE_DONE for n in gpu_names)} "
+                               f"GPU nodes are not {us.STATE_DONE}")
+        nums["upgrade_passes"] = passes
+        nums["upgrade_s"] = time.perf_counter() - t_walk
+        nums["upgrade_pass_ms_mean"] = sum(pass_ms) / len(pass_ms)
+        nums["upgrade_pass_ms_max"] = max(pass_ms)
+        nums["card_cordon_to_uncordon_s"] = uncordoned_at - cordoned_at if uncordoned_at and cordoned_at else None
+        evictions = [p for m, p in requests if m == "POST" and p.endswith("/eviction")]
+        new = raw.get("v1", "Pod", driver_pod, ns)["metadata"]
+        ann = raw.get("v1", "Node", card)["metadata"].get("annotations") or {}
+        labelled_cpu = [n for n in cpus if consts.UPGRADE_STATE_LABEL in _labels_of(raw, n)]
+        misses = {
+            "order": seen != list(UPGRADE_ORDER),
+            "cordon": nums["card_cordon_to_uncordon_s"] is None,
+            "eviction": not any(p.endswith(f"/namespaces/default/pods/{pod['metadata']['name']}/eviction")
+                                for p in evictions) or raw.get_or_none("v1", "Pod", pod["metadata"]["name"],
+                                                                       "default") is not None,
+            "driver pod": new["uid"] == old["uid"] or new["annotations"][consts.LAST_APPLIED_HASH_ANNOTATION] != after[
+                drv],
+            "previous version": not card_version or ann.get(consts.UPGRADE_PREVIOUS_VERSION_ANNOTATION) != card_version,
+            "pdb": pdb_deleted_at is None or raw.get_or_none("v1", "Pod", "gang-0", "default") is not None,
+            "cpu": bool(labelled_cpu),
+        }
+        if any(misses.values()):
+            raise RuntimeError(f"upgrade walk: {[k for k, v in misses.items() if v]}; the card's node went {seen}; "
+                               f"evictions {evictions[:5]}; CPU nodes labelled {labelled_cpu[:5]}")
+        synced()
+        requests.clear()
+        mgr.apply_state(mgr.build_state(), policy)
+        writes = [r for r in requests if r[0] != "GET"]
+        if writes:
+            raise RuntimeError(f"a pass over the rolled fleet wrote {writes[:5]}")
+        log(f"upgrade: every one of {len(gpu_names)} GPU nodes {us.STATE_DONE} after {passes} passes in "
+            f"{nums['upgrade_s']:.2f} s (a pass {nums['upgrade_pass_ms_mean']:.1f} ms mean, "
+            f"{nums['upgrade_pass_ms_max']:.1f} ms at most); the card's node went {' -> '.join(seen)}, cordoned "
+            f"{nums['card_cordon_to_uncordon_s']:.2f} s, {pod['metadata']['name']} evicted, {driver_pod} recreated "
+            f"at {after[drv]}, previous version {card_version}; at most {worst} of {n_slices} slices disrupted "
+            f"(cap {cap}); {PDB_SLICE} pinned in drain for {pinned_passes} passes until its PDB went; "
+            f"{len(evictions)} evictions; one more pass wrote nothing")
+
+        # 3. remediation
+        edit(lambda cp: cp["spec"].__setitem__("remediation", {
+            "enabled": True, "backoffSeconds": 0, "maxAttempts": 2, "maxUnavailable": FSM_BUDGET}))
+        controller_pass(states=False)
+        rspec = ctl.cp.spec.remediation
+        rctl = remediation.NodeRemediationController(cached, ns)
+        raw.create(_fsm_pod(f"user-job-{card}", ns, card, {"app": "user-job"}, owned=False))
+        operands = sorted(p["metadata"]["name"] for p in raw.list("v1", "Pod", ns)
+                          if p["spec"].get("nodeName") == card and p["metadata"]["labels"].get("app", "").startswith(
+                              consts.OPERAND_APP_PREFIX))
+        t_down = time.perf_counter()
+        capacity(0)
+        synced()
+        verdict = rctl._verdict(thaw(cached.get("v1", "Node", card)), *rctl._namespace_pods_by_node())
+        if f"0 allocatable {consts.GPU_RESOURCE}" not in verdict.reasons:
+            raise RuntimeError(f"the card's verdict {verdict.reasons}")
+        rseen, deleted = [], []
+        for rpasses in range(1, MAX_FSM_PASSES + 1):
+            requests.clear()
+            summary = rctl.reconcile(gpu_nodes(), rspec, ns)
+            deleted += [p.rsplit("/", 1)[1] for m, p in requests if m == "DELETE" and "/pods/" in p]
+            if summary.breaker_open or summary.unhealthy_hosts != [card]:
+                raise RuntimeError(f"pass {rpasses}: breaker {summary.breaker_open}, unhealthy "
+                                   f"{summary.unhealthy_hosts[:5]}")
+            node = raw.get("v1", "Node", card)
+            rstate = (node["metadata"].get("labels") or {}).get(consts.REMEDIATION_STATE_LABEL)
+            rseen.append(rstate)
+            if rstate == consts.REMEDIATION_STATE_QUARANTINED:
+                break
+            kubelet()
+        else:
+            raise RuntimeError(f"{MAX_FSM_PASSES} passes and the card's node is {rseen[-1]}")
+        nums["quarantine_s"] = time.perf_counter() - t_down
+        quarantine = (node["spec"].get("unschedulable"), has_taint(node, consts.REPAIR_TAINT_KEY, consts.REPAIR_PENDING),
+                      node["metadata"]["labels"].get(consts.REPAIR_LABEL))
+        touched = [n for n, (lab, spec) in labels().items() if n != card and (
+            consts.REMEDIATION_STATE_LABEL in lab or consts.REPAIR_LABEL in lab or spec.get("unschedulable")
+            or any(t.get("key") == consts.REPAIR_TAINT_KEY for t in spec.get("taints") or []))]
+        if (quarantine != (True, True, consts.REPAIR_PENDING) or sorted(deleted) != operands or touched
+                or raw.get_or_none("v1", "Pod", f"user-job-{card}", ns) is None):
+            raise RuntimeError(f"remediation: quarantine {quarantine}, deleted {deleted} of operands {operands}, "
+                               f"other nodes touched {touched[:5]}, states {rseen}")
+        t_up = time.perf_counter()
+        capacity(None)
+        kubelet()
+        for upasses in range(1, MAX_FSM_PASSES + 1):
+            rctl.reconcile(gpu_nodes(), rspec, ns)
+            node = raw.get("v1", "Node", card)
+            rstate = (node["metadata"].get("labels") or {}).get(consts.REMEDIATION_STATE_LABEL)
+            if rstate == consts.REMEDIATION_STATE_RECOVERED:
+                break
+            kubelet()
+        else:
+            raise RuntimeError(f"{MAX_FSM_PASSES} passes and the card's node is {rstate}")
+        nums["recover_s"] = time.perf_counter() - t_up
+        if (node["spec"].get("unschedulable") or has_taint(node, consts.REPAIR_TAINT_KEY)
+                or consts.REPAIR_LABEL in node["metadata"]["labels"]):
+            raise RuntimeError(f"recovered, but {node['spec']} {node['metadata']['labels']}")
+        log(f"remediation: every card unhealthy -> the card's node {' -> '.join(rseen)} in {rpasses} passes, "
+            f"{nums['quarantine_s']:.2f} s (verdict {verdict.reasons}; restart rung deleted {deleted}, left "
+            f"user-job-{card}; no other node touched); cards healthy -> recovered in {upasses} passes, "
+            f"{nums['recover_s']:.2f} s, schedulable, no taint or label")
+
+        # 4. the re-partition roll
+        edit(lambda cp: cp["spec"]["sliceManager"].update(
+            config={"name": "slice-configs", "default": FSM_LAYOUT}, maxUnavailable=FSM_BUDGET))
+        controller_pass(states=False)
+        sspec = ctl.cp.spec.slice_manager
+        pctl = repartition.SliceRepartitionController(cached, ns)
+        manager = sm.SliceManager(raw, card, **slice_manager)
+        sm_ms, skipped = [], None
+        t_roll = time.perf_counter()
+        for ppasses in range(1, MAX_FSM_PASSES + 1):
+            summary = pctl.reconcile(gpu_nodes(), sspec, ns)
+            if summary.disrupted_slices > cap:
+                raise RuntimeError(f"pass {ppasses}: {summary.disrupted_slices} slices rolling, over {cap}")
+            synced()
+            now = labels()
+            rolling = [n for n in gpu_names if now[n][0].get(consts.REPARTITION_STATE_LABEL)
+                       == consts.REPARTITION_STATE_ROLLING]
+            if card in rolling:
+                got = {m: (now[m][0].get(consts.SLICE_CONFIG_LABEL), now[m][0].get(consts.SLICE_CONFIG_STATE_LABEL))
+                       for m in members}
+                if skipped is None and (set(got.values()) != {(FSM_LAYOUT, sm.STATE_PENDING)} or not set(
+                        members) <= set(rolling)):
+                    raise RuntimeError(f"{CARD_SLICE} admitted as {got}")
+                verdict = rctl._verdict(thaw(cached.get("v1", "Node", card)), *rctl._namespace_pods_by_node())
+                rsum = rctl.reconcile(gpu_nodes(), rspec, ns)
+                if verdict.skip_reason != "in-flight slice re-partition roll" or rsum.skipped < len(members):
+                    raise RuntimeError(f"remediation during the roll: {verdict.skip_reason!r}, {rsum.skipped} skipped")
+                skipped = rsum.skipped
+                t0 = time.perf_counter()
+                result = manager.reconcile_once()
+                sm_ms.append((time.perf_counter() - t0) * 1e3)
+                if result != sm.STATE_SUCCESS:
+                    raise RuntimeError(f"the card's slice manager: {result}")
+            for n in rolling:
+                if n != card and now[n][0].get(consts.SLICE_CONFIG_STATE_LABEL) != sm.STATE_SUCCESS:
+                    raw.patch_labels("v1", "Node", n, labels={consts.SLICE_CONFIG_STATE_LABEL: sm.STATE_SUCCESS})
+            done = [n for n in gpu_names if now[n][0].get(consts.SLICE_CONFIG_LABEL) == FSM_LAYOUT
+                    and now[n][0].get(consts.SLICE_CONFIG_STATE_LABEL) == sm.STATE_SUCCESS and n not in rolling]
+            if len(done) == len(gpu_names):
+                break
+            synced()
+        else:
+            raise RuntimeError(f"{MAX_FSM_PASSES} passes and {len(gpu_names) - len(done)} GPU nodes not on "
+                               f"{FSM_LAYOUT}")
+        nums["repartition_passes"] = ppasses
+        nums["repartition_s"] = time.perf_counter() - t_roll
+        nums["slice_manager_ms"] = sm_ms
+        part = sm.read_partition_state(slice_manager["partition_file"])
+        if skipped is None or not sm_ms or (part or {}).get("config") != FSM_LAYOUT:
+            raise RuntimeError(f"the card's slice was never rolled: partition {part}")
+        log(f"re-partition: every GPU node on {FSM_LAYOUT} after {ppasses} passes in {nums['repartition_s']:.2f} s; "
+            f"the card's SliceManager.reconcile_once {', '.join(f'{t:.1f}' for t in sm_ms)} ms "
+            f"({len(part['subslices'])} subslices of {part['shape']}); remediation skipped the card's node "
+            f"while it rolled ({skipped} nodes skipped); {pctl.stats()['rolls_completed_total']} holds released")
+        return nums
+    finally:
+        cached.live._request = request
+        _stop_controller(cached, stop, ctl, raw, namespace_env)
+
+
+def phase_node_fsms() -> None:
+    """The node FSMs on the card's node (phase 13): the card's node, one
+    host of ``CARD_SLICE``, joins a fleet of 4-host slices, single hosts
+    of the other H100 variant and CPU nodes on one KubeSim; the device
+    plugin over the real cards advertises the capacity remediation reads
+    and answers the kubelet's allocation of the workload's cards; the
+    port's ``SliceManager`` applies the card's layout;
+    ``run_node_fsms`` walks the three FSMs."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.kube import kubelet_sim, kubesim, testing
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.plugin import server as plugin
+    from tpu_operator_torch.workloads.topology import device_generation
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    n = torch.cuda.device_count()
+    chips = gpuinfo.chip_summary()
+    card_variant = device_generation(torch.cuda.get_device_name(0))
+    if card_variant is None or len(chips) != n:
+        raise RuntimeError(f"{torch.cuda.get_device_name(0)!r} is no H100 variant, or the chip table {chips}")
+    ns = consts.DEFAULT_NAMESPACE
+    faulthandler.dump_traceback_later(NODE_FSMS_TIMEOUT_S, exit=True)
+    with tempfile.TemporaryDirectory(prefix="cs13-") as tmp:
+        sim_server = kubesim.KubeSimServer(port=0).start()
+        sim = sim_server.sim
+        kubelet = plugin_server = None
+        try:
+            raw = kubesim.make_client(sim_server.port)
+            testing.seed_cluster(raw, ns, node_names=())
+            labels = tfd.gather_features({"metadata": {"name": OPERANDS_NODE, "labels": {}}},
+                                         dev_root="/dev", driver_root="/", env={}, chips=chips)
+            check_features(labels, n)
+            slices, nodes, cpus, other_variant = fsm_fleet(raw, sim, OPERANDS_NODE, labels, card_variant)
+
+            socket_dir = os.path.join(tmp, "k")
+            kubelet = kubelet_sim.KubeletDeviceManager(kubesim.make_client(sim_server.port), OPERANDS_NODE,
+                                                       socket_dir)
+            kubelet.start()
+            servicer = plugin.GPUDevicePluginServicer(dev_root="/dev", driver_root="/", poll_interval_s=0.2,
+                                                      health_probe_interval_s=3600)
+            plugin_server = plugin.DevicePluginServer(servicer, socket_dir=socket_dir)
+            plugin_server.start()
+            plugin_server.register_with_kubelet(kubelet.kubelet_socket)
+            ids = sorted((str(c["index"]) for c in chips), key=int)
+
+            def capacity(alloc):
+                """``None``: every card healthy; 0: every card unhealthy.
+                Waits for the node to advertise it."""
+                for i in ids:
+                    (servicer.mark_unhealthy if alloc == 0 else servicer.mark_healthy)(i)
+                want = n if alloc is None else alloc
+                _wait_for(f"allocatable {want} on the card's node", lambda: raw.get("v1", "Node", OPERANDS_NODE).get(
+                    "status", {}).get("allocatable", {}).get(consts.GPU_RESOURCE) == str(want), PLUGIN_TIMEOUT_S)
+
+            def workload():
+                """A Job's pod on the card's node holding every card the
+                kubelet allocates it."""
+                resp = kubelet.allocate(consts.GPU_RESOURCE, n)
+                cards = [d.name.split("=", 1)[1] for d in resp.container_responses[0].cdi_devices]
+                if len(cards) != n:
+                    raise RuntimeError(f"the kubelet allocated {cards}")
+                pod = _fsm_pod("card-train", "default", OPERANDS_NODE, {"app": "train"}, cards=n)
+                pod["metadata"]["annotations"] = {"chip-smoke.example.com/cards": ",".join(cards)}
+                return pod
+
+            capacity(None)
+            config_file, clients_file = os.path.join(tmp, "slice-configs.yaml"), os.path.join(tmp, "clients.yaml")
+            with open(config_file, "w") as f:
+                json.dump({"version": "v1", "slice-configs": {FSM_LAYOUT: [
+                    {"devices": "all", "partitioned": True, "layout": {"shape": "1x1"}}]}}, f)  # JSON is YAML
+            with open(clients_file, "w") as f:
+                json.dump({"version": "v1", "kubernetes-labels": [
+                    consts.DEPLOY_LABEL_PREFIX + consts.COMPONENT_DEVICE_PLUGIN]}, f)
+            slice_manager = {"config_file": config_file, "chip_clients_file": clients_file,
+                             "partition_file": os.path.join(tmp, "partitions.json"),
+                             "cdi_spec_path": os.path.join(tmp, "cdi", "nvidia.json"), "dev_root": "/dev",
+                             "driver_root": "/"}
+            nums = run_node_fsms(sim_server.port, ns, OPERANDS_NODE, other_variant, slices, nodes, cpus, capacity,
+                                 workload, slice_manager)
+        finally:
+            if plugin_server is not None:
+                plugin_server.stop()
+            if kubelet is not None:
+                kubelet.stop()
+            sim_server.stop()
+            faulthandler.cancel_dump_traceback_later()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the node FSMs launched kernels of the package: {launched}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"node FSMs on: {smi.stdout.strip() or smi.stderr.strip()}; {json.dumps(nums)}; "
+        f"no kernel of the package launched; phase 13 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -3232,6 +3769,7 @@ def main() -> int:
     phase_control_plane()
     phase_control_plane_rw()
     phase_state_machine()
+    phase_node_fsms()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

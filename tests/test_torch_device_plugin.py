@@ -672,7 +672,9 @@ def test_transport_free_path_needs_no_grpc_protobuf_or_yaml(dev_roots):
     ledger's head) import too; ``controllers.resource_manager`` is the one
     that needs PyYAML, and only where it loads a state directory (the
     assets ``ClusterPolicyController.init`` reads), so no import needs
-    it."""
+    it. The node FSMs (the upgrade, remediation and the re-partition roll)
+    import too, and a node carrying each of the upgrade FSM's renamed labels
+    and annotations crosses ``convert`` to the reference's names and back."""
     code = f"""
 import sys
 for name in ("grpc", "google", "google.protobuf", "yaml"):
@@ -694,8 +696,23 @@ for mod in ("tpu_operator_torch", "tpu_operator_torch.workloads.topology",
             "tpu_operator_torch.controllers.operator_metrics",
             "tpu_operator_torch.controllers.resource_manager",
             "tpu_operator_torch.controllers.object_controls", "tpu_operator_torch.controllers.slice_status",
-            "tpu_operator_torch.controllers.rollout"):
+            "tpu_operator_torch.controllers.rollout", "tpu_operator_torch.upgrade.upgrade_state",
+            "tpu_operator_torch.controllers.remediation", "tpu_operator_torch.controllers.repartition",
+            "tpu_operator_torch.sliceman.slice_manager", "tpu_operator_torch.kube.disruption"):
     importlib.import_module(mod)
+from tpu_operator_torch import consts, convert
+renamed = [consts.UPGRADE_SKIP_LABEL, consts.UPGRADE_SKIP_DRAIN_LABEL] + list(convert.ANNOTATION_KEYS.values())
+kept = [consts.REMEDIATION_SKIP_LABEL, consts.REPAIR_LABEL, consts.REMEDIATION_ATTEMPTS_ANNOTATION,
+        consts.REMEDIATION_INITIAL_STATE_ANNOTATION]
+labels = [consts.UPGRADE_SKIP_LABEL, consts.UPGRADE_SKIP_DRAIN_LABEL, consts.REMEDIATION_SKIP_LABEL, consts.REPAIR_LABEL]
+node = {{"apiVersion": "v1", "kind": "Node", "metadata": {{
+    "name": "n", "labels": {{k: "true" for k in labels}},
+    "annotations": {{k: "x" for k in renamed + kept if k not in labels}}}}}}
+ref = convert.object_to_reference(node)
+keys = set(ref["metadata"]["labels"]) | set(ref["metadata"]["annotations"])
+assert len(keys) == len(renamed + kept) and set(kept) <= keys, ref
+assert all("libtpu" in k for k in keys - set(kept)), ref
+assert convert.object_from_reference(ref) == node
 from tpu_operator_torch.native import gpuinfo
 gpuinfo._load = lambda: None
 gpuinfo._load_native = lambda: None

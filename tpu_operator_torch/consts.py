@@ -134,6 +134,12 @@ REMEDIATION_DISRUPTED_STATES = (
     REMEDIATION_STATE_QUARANTINED,
     REMEDIATION_STATE_EXHAUSTED,
 )
+# remediation's bookkeeping (:135-146): the attempts record, the node's
+# cordon before quarantine, the escape hatch and the quarantine label
+REMEDIATION_ATTEMPTS_ANNOTATION = f"{GROUP}/remediation-attempts"
+REMEDIATION_INITIAL_STATE_ANNOTATION = f"{GROUP}/remediation.node-initial-state.unschedulable"
+REMEDIATION_SKIP_LABEL = f"{GROUP}/remediation.skip"
+REPAIR_LABEL = f"{GROUP}/repair"
 REPARTITION_STATE_LABEL = f"{GROUP}/repartition-state"
 REPARTITION_STATE_ROLLING = "rolling"
 VALIDATOR_PERF_ANNOTATION = f"{GROUP}/validator-perf"
@@ -142,6 +148,12 @@ VALIDATOR_PERF_BASELINE_ANNOTATION = f"{GROUP}/validator-perf-baseline"
 UPGRADE_ENABLED_ANNOTATION = f"{GROUP}/driver-upgrade-enabled"
 UPGRADE_PREVIOUS_VERSION_ANNOTATION = f"{GROUP}/driver-previous-version"
 UPGRADE_STATE_SINCE_ANNOTATION = f"{GROUP}/driver-upgrade-state-since"
+# the upgrade FSM's retry record, skip labels and the node's cordon before
+# the roll (:213, :237-243), ``libtpu`` -> ``driver``
+UPGRADE_RETRY_ANNOTATION = f"{GROUP}/driver-upgrade-retries"
+UPGRADE_SKIP_LABEL = f"{GROUP}/driver-upgrade.skip"
+UPGRADE_SKIP_DRAIN_LABEL = f"{GROUP}/driver-upgrade-drain.skip"
+UPGRADE_INITIAL_STATE_ANNOTATION = f"{GROUP}/driver-upgrade.node-initial-state.unschedulable"
 # the rollout ledger on the ClusterPolicy (:224)
 ROLLOUT_STATE_ANNOTATION = f"{GROUP}/rollout-state"
 # the driver version that tags the validator-perf readings, as GPU feature
@@ -193,6 +205,9 @@ OPERAND_APPS = {
     "tpu-sandbox-validator": "gpu-sandbox-validator",
     "tpu-kata-manager-daemonset": "gpu-kata-manager-daemonset",
 }
+# what every operand app starts with: the remediation FSM's operand filter
+# (the reference's ``startswith("tpu-")``)
+OPERAND_APP_PREFIX = "gpu-"
 DRIVER_APP = OPERAND_APPS["tpu-libtpu-daemonset"]
 VALIDATOR_APP = OPERAND_APPS["tpu-operator-validator"]
 

@@ -21,12 +21,12 @@ The objects around it cross through ``operand_app_from_reference`` (the
 ``OPERAND_APPS`` table, a per-variant suffix kept), ``pod_from_reference``
 (resource requests and limits ``google.com/tpu`` to ``nvidia.com/gpu``,
 an operand's ``app`` label and name), ``object_from_reference``, which
-converts any object by its kind (a node's capacity, allocatable and
-operator labels; a DaemonSet's name, ``app`` labels and node selector, the
+converts any object by its kind (a node's capacity, allocatable,
+operator labels and the upgrade FSM's annotations; a DaemonSet's name, ``app`` labels and node selector, the
 validator's and the driver's init containers and the status files), and
 ``warm_journal_from_reference``, which maps every informer snapshot of a
-warm journal through it; the app, pod and journal converters have their
-way back.
+warm journal through it; the app, pod, object and journal converters have
+their way back.
 
 Two reference names have no fixed counterpart and cross through a table
 the caller gives (``variants``, reference generation to card variant, e.g.
@@ -267,6 +267,17 @@ LABEL_KEYS = {
     REF_LIBTPU_VERSION_LABEL: consts.DRIVER_VERSION_LABEL,
     consts.DEPLOY_LABEL_PREFIX + "libtpu": consts.DEPLOY_LABEL_PREFIX + consts.COMPONENT_DRIVER,
     f"{consts.GROUP}/libtpu-upgrade-state": consts.UPGRADE_STATE_LABEL,
+    f"{consts.GROUP}/libtpu-upgrade.skip": consts.UPGRADE_SKIP_LABEL,
+    f"{consts.GROUP}/libtpu-upgrade-drain.skip": consts.UPGRADE_SKIP_DRAIN_LABEL,
+}
+# the upgrade FSM's node annotations that name the driver: the reference's
+# to the port's
+ANNOTATION_KEYS = {
+    f"{consts.GROUP}/libtpu-upgrade-retries": consts.UPGRADE_RETRY_ANNOTATION,
+    f"{consts.GROUP}/libtpu-previous-version": consts.UPGRADE_PREVIOUS_VERSION_ANNOTATION,
+    f"{consts.GROUP}/libtpu-upgrade-state-since": consts.UPGRADE_STATE_SINCE_ANNOTATION,
+    f"{consts.GROUP}/libtpu-upgrade.node-initial-state.unschedulable": consts.UPGRADE_INITIAL_STATE_ANNOTATION,
+    f"{consts.GROUP}/libtpu-upgrade-enabled": consts.UPGRADE_ENABLED_ANNOTATION,
 }
 # the validator's and the driver's init containers, and the status files:
 # the reference's to the port's
@@ -352,7 +363,13 @@ def pod_to_reference(pod: Dict[str, Any]) -> Dict[str, Any]:
 
 def _node(node: Dict[str, Any], forward: bool, variants=None) -> Dict[str, Any]:
     out = copy.deepcopy(node)
-    _labels(out.get("metadata", {}), forward, variants=variants)
+    meta = out.get("metadata", {})
+    _labels(meta, forward, variants=variants)
+    ann = meta.get("annotations")
+    if ann:
+        for old, new in _table(ANNOTATION_KEYS, forward).items():
+            if old in ann:
+                ann[new] = ann.pop(old)
     status = out.get("status") or {}
     for field in ("capacity", "allocatable"):
         if status.get(field):
@@ -371,11 +388,16 @@ def _status_files(text: str, forward: bool) -> str:
 
 def _daemonset(ds: Dict[str, Any], forward: bool, variants=None) -> Dict[str, Any]:
     out = copy.deepcopy(ds)
-    _labels(out.get("metadata", {}), forward, rename=True, variants=variants)
+    meta = out.get("metadata", {})
+    _labels(meta, forward, rename=True, variants=variants)
     spec = out.get("spec") or {}
     match = (spec.get("selector") or {}).get("matchLabels")
     if match:
+        app = match.get("app")
         _labels({"labels": match}, forward, variants=variants)
+        if not (meta.get("labels") or {}).get("app") and meta.get("name") == app:
+            # an unlabelled DaemonSet named by its selector's app
+            meta["name"] = match["app"]
     tmpl = spec.get("template") or {}
     _labels(tmpl.get("metadata") or {}, forward, variants=variants)
     pod_spec = tmpl.get("spec") or {}
@@ -408,6 +430,12 @@ def object_from_reference(obj: Dict[str, Any], variants: Optional[Dict[str, str]
     pod, node or DaemonSet through its converter, any other kind copied.
     ``variants`` maps the reference's generations to card variants."""
     return _object_converter(obj.get("kind", ""), True, variants)(obj)
+
+
+def object_to_reference(obj: Dict[str, Any], variants: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
+    """The port's object as the reference's (the inverse of
+    ``object_from_reference``)."""
+    return _object_converter(obj.get("kind", ""), False, variants)(obj)
 
 
 def _journal(payload: Dict[str, Any], forward: bool) -> Dict[str, Any]:

@@ -1,0 +1,3 @@
+"""The rolling driver upgrade: the per-node FSM, its managers and the
+slice-unit disruption budget it shares with remediation and the
+re-partition roll (``upgrade_state``)."""
