@@ -246,6 +246,34 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    client, and every GPU node ends on the layout; the passes and times and
    the card's name and power limit are logged; this path launches none of
    K1-K7c;
+14. (after 13, before 4) the reconcilers on the card's node, under a
+   watchdog of ``RECONCILERS_TIMEOUT_S``. On a KubeSim with ``FLEET_NODES``
+   nodes (the card's node one host of ``slice-card``, ``RECONCILE_SLICES``
+   4-host slices of its variant, ``RECONCILE_SOLOS`` single hosts of the
+   other, the rest CPU nodes; the device plugin over the real cards
+   serving the card's node), a ``ClusterPolicyReconciler`` over a
+   ``CachedClient`` (``run_reconcile_pass``) reaches ``Result.ready`` with
+   every slice ready within ``MAX_RECONCILE_PASSES`` (``status.state``
+   ``ready``, ``status.slices`` one unit a 4-host slice or single host, the
+   ``Ready`` condition true, one Normal ``Ready`` Event, no CPU node
+   labelled); five traced steady passes and one scoped pass issue 0 write
+   requests and record the six span names of the pass; the predicate
+   ``node_event_needs_reconcile`` over the cache's ``(old, new)`` wakes on
+   one card marked unhealthy and on a product-label edit, not on another
+   label; an ``EventRouter`` fed by the cache's event hook routes the card's
+   validator going not-ready to ``("slice", "slice-card")`` alone, and
+   ``reconcile_slice`` lowers ``status.slices.ready`` by one and labels the
+   slice's hosts false without a full pass, then restores both. On a second
+   KubeSim of ``ROLLOUT_SLICES`` 4-host slices (``run_rollout``; a tick is
+   a full pass, a kubelet sweep and an ``UpgradeReconciler`` pass, at most
+   ``MAX_ROLLOUT_TICKS``), a clean driver roll under ``ROLLOUT`` reaches
+   ``complete`` with 2 promotions, ``status.rollout`` mirroring the ledger,
+   every node's previous version recorded and the card's driver pod
+   recreated at the new hash, at most 25% of slices disrupted in any tick;
+   a registered bad version is rolled back from its canary, no slice
+   outside it admitted, with one Warning Event naming the evidence and one
+   flight dump; the times and the card's name and power limit are logged;
+   this path launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -2954,6 +2982,45 @@ def _stop_controller(cached, stop, ctl, raw, namespace_env) -> None:
         raise RuntimeError(f"cache threads outlived the phase: {[t.name for t in cached._threads]}")
 
 
+def card_device_plugin(port: int, tmp: str, chips: list) -> tuple:
+    """The device plugin over the real cards, registered with a simulated
+    kubelet that writes the card's node on the KubeSim at ``port``.
+    Returns ``(kubelet, plugin_server, capacity)``; the caller stops the
+    first two. ``capacity(alloc)`` marks cards healthy so that
+    ``alloc`` of them stay allocatable (``None``: every card; 0: none) and
+    waits for the node to advertise it."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.kube import kubelet_sim, kubesim
+    from tpu_operator_torch.plugin import server as plugin
+
+    n = len(chips)
+    raw = kubesim.make_client(port)
+    socket_dir = os.path.join(tmp, "k")
+    kubelet = kubelet_sim.KubeletDeviceManager(kubesim.make_client(port), OPERANDS_NODE, socket_dir)
+    kubelet.start()
+    servicer = plugin.GPUDevicePluginServicer(dev_root="/dev", driver_root="/", poll_interval_s=0.2,
+                                              health_probe_interval_s=3600)
+    plugin_server = plugin.DevicePluginServer(servicer, socket_dir=socket_dir)
+    try:
+        plugin_server.start()
+        plugin_server.register_with_kubelet(kubelet.kubelet_socket)
+    except BaseException:
+        plugin_server.stop()
+        kubelet.stop()
+        raise
+    ids = sorted((str(c["index"]) for c in chips), key=int)
+
+    def capacity(alloc):
+        want = n if alloc is None else alloc
+        for j, i in enumerate(ids):
+            (servicer.mark_healthy if j >= n - want else servicer.mark_unhealthy)(i)
+        _wait_for(f"allocatable {want} on the card's node", lambda: raw.get("v1", "Node", OPERANDS_NODE).get(
+            "status", {}).get("allocatable", {}).get(consts.GPU_RESOURCE) == str(want), PLUGIN_TIMEOUT_S)
+        return want
+
+    return kubelet, plugin_server, capacity
+
+
 def run_state_machine(port: int, ns: str, card: str, card_variant: str, other_variant: str, nodes: list,
                       cpu_nodes: list, capacity) -> dict:
     """Drive the port's ``ClusterPolicyController`` over a ``CachedClient``
@@ -3157,9 +3224,8 @@ def phase_state_machine() -> None:
     from tpu_operator_torch import _build
     from tpu_operator_torch import consts
     from tpu_operator_torch.discovery import tfd
-    from tpu_operator_torch.kube import kubelet_sim, kubesim, testing
+    from tpu_operator_torch.kube import kubesim, testing
     from tpu_operator_torch.native import gpuinfo
-    from tpu_operator_torch.plugin import server as plugin
     from tpu_operator_torch.workloads.topology import device_generation
 
     t_phase = time.perf_counter()
@@ -3191,28 +3257,7 @@ def phase_state_machine() -> None:
             cpus = sim.add_nodes(CPU_NODES, name_prefix="cpu", template=testing.make_cpu_node("x"), chips=0)
             nodes = [OPERANDS_NODE] + same + other + cpus
 
-            socket_dir = os.path.join(tmp, "k")
-            kubelet = kubelet_sim.KubeletDeviceManager(kubesim.make_client(sim_server.port), OPERANDS_NODE,
-                                                       socket_dir)
-            kubelet.start()
-            servicer = plugin.GPUDevicePluginServicer(dev_root="/dev", driver_root="/", poll_interval_s=0.2,
-                                                      health_probe_interval_s=3600)
-            plugin_server = plugin.DevicePluginServer(servicer, socket_dir=socket_dir)
-            plugin_server.start()
-            plugin_server.register_with_kubelet(kubelet.kubelet_socket)
-            ids = sorted((str(c["index"]) for c in chips), key=int)
-
-            def capacity(alloc):
-                """``None``: the plugin's advertisement as it stands (every
-                card); 0: every card marked unhealthy. Waits for the node."""
-                if alloc == 0:
-                    for i in ids:
-                        servicer.mark_unhealthy(i)
-                want = n if alloc is None else alloc
-                _wait_for(f"allocatable {want} on the card's node", lambda: raw.get("v1", "Node", OPERANDS_NODE).get(
-                    "status", {}).get("allocatable", {}).get(consts.GPU_RESOURCE) == str(want), PLUGIN_TIMEOUT_S)
-                return want
-
+            kubelet, plugin_server, capacity = card_device_plugin(sim_server.port, tmp, chips)
             nums = run_state_machine(sim_server.port, ns, OPERANDS_NODE, card_variant, other_variant, nodes, cpus,
                                      capacity)
         finally:
@@ -3260,12 +3305,13 @@ def _fsm_pod(name: str, ns: str, node: str, labels: dict, cards: int = 0, owned:
     return pod
 
 
-def fsm_fleet(raw, sim, card: str, labels: dict, card_variant: str) -> tuple:
+def fsm_fleet(raw, sim, card: str, labels: dict, card_variant: str, n_slices: int = FSM_SLICES,
+              n_solos: int = FSM_SOLO_NODES, n_cpus: int = FSM_CPU_NODES) -> tuple:
     """Create the card's node (``labels``, plus the slice labels of one
     host of ``CARD_SLICE``) and the simulated fleet around it: its 3
-    slice peers and ``FSM_SLICES - 1`` more 4-host slices of the card's
-    variant, ``FSM_SOLO_NODES`` single hosts of the other H100 variant and
-    ``FSM_CPU_NODES`` CPU nodes. Returns ``(slices, nodes, cpu_nodes,
+    slice peers and ``n_slices - 1`` more 4-host slices of the card's
+    variant, ``n_solos`` single hosts of the other H100 variant and
+    ``n_cpus`` CPU nodes. Returns ``(slices, nodes, cpu_nodes,
     other_variant)``, ``slices`` each 4-host slice's members."""
     from tpu_operator_torch import consts
     from tpu_operator_torch.kube import testing
@@ -3278,12 +3324,12 @@ def fsm_fleet(raw, sim, card: str, labels: dict, card_variant: str) -> tuple:
     mine = testing.make_gpu_node("x", variant=card_variant, product=products.get(card_variant, "NVIDIA-H100-NVL"))
     slices = {CARD_SLICE: [card] + sim.add_nodes(FSM_SLICE_HOSTS - 1, name_prefix="card-peer", template=mine,
                                                  extra_labels={consts.TFD_SLICE_ID_LABEL: CARD_SLICE, **hosts})}
-    for i in range(1, FSM_SLICES):
+    for i in range(1, n_slices):
         slices[f"slice-{i}"] = sim.add_nodes(FSM_SLICE_HOSTS, name_prefix=f"slice-{i}-host", template=mine,
                                              extra_labels={consts.TFD_SLICE_ID_LABEL: f"slice-{i}", **hosts})
-    solos = sim.add_nodes(FSM_SOLO_NODES, name_prefix="solo", template=testing.make_gpu_node(
+    solos = sim.add_nodes(n_solos, name_prefix="solo", template=testing.make_gpu_node(
         "x", variant=other_variant, product=products[other_variant]))
-    cpus = sim.add_nodes(FSM_CPU_NODES, name_prefix="cpu", template=testing.make_cpu_node("x"), chips=0)
+    cpus = sim.add_nodes(n_cpus, name_prefix="cpu", template=testing.make_cpu_node("x"), chips=0)
     return slices, [m for names in slices.values() for m in names] + solos + cpus, cpus, other_variant
 
 
@@ -3639,9 +3685,8 @@ def phase_node_fsms() -> None:
     from tpu_operator_torch import _build
     from tpu_operator_torch import consts
     from tpu_operator_torch.discovery import tfd
-    from tpu_operator_torch.kube import kubelet_sim, kubesim, testing
+    from tpu_operator_torch.kube import kubesim, testing
     from tpu_operator_torch.native import gpuinfo
-    from tpu_operator_torch.plugin import server as plugin
     from tpu_operator_torch.workloads.topology import device_generation
 
     t_phase = time.perf_counter()
@@ -3665,26 +3710,7 @@ def phase_node_fsms() -> None:
             check_features(labels, n)
             slices, nodes, cpus, other_variant = fsm_fleet(raw, sim, OPERANDS_NODE, labels, card_variant)
 
-            socket_dir = os.path.join(tmp, "k")
-            kubelet = kubelet_sim.KubeletDeviceManager(kubesim.make_client(sim_server.port), OPERANDS_NODE,
-                                                       socket_dir)
-            kubelet.start()
-            servicer = plugin.GPUDevicePluginServicer(dev_root="/dev", driver_root="/", poll_interval_s=0.2,
-                                                      health_probe_interval_s=3600)
-            plugin_server = plugin.DevicePluginServer(servicer, socket_dir=socket_dir)
-            plugin_server.start()
-            plugin_server.register_with_kubelet(kubelet.kubelet_socket)
-            ids = sorted((str(c["index"]) for c in chips), key=int)
-
-            def capacity(alloc):
-                """``None``: every card healthy; 0: every card unhealthy.
-                Waits for the node to advertise it."""
-                for i in ids:
-                    (servicer.mark_unhealthy if alloc == 0 else servicer.mark_healthy)(i)
-                want = n if alloc is None else alloc
-                _wait_for(f"allocatable {want} on the card's node", lambda: raw.get("v1", "Node", OPERANDS_NODE).get(
-                    "status", {}).get("allocatable", {}).get(consts.GPU_RESOURCE) == str(want), PLUGIN_TIMEOUT_S)
-
+            kubelet, plugin_server, capacity = card_device_plugin(sim_server.port, tmp, chips)
             def workload():
                 """A Job's pod on the card's node holding every card the
                 kubelet allocates it."""
@@ -3724,6 +3750,487 @@ def phase_node_fsms() -> None:
                          capture_output=True, text=True, timeout=60)
     log(f"node FSMs on: {smi.stdout.strip() or smi.stderr.strip()}; {json.dumps(nums)}; "
         f"no kernel of the package launched; phase 13 {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 14: the reconcilers on the card's node
+RECONCILERS_TIMEOUT_S = 900  # the phase's watchdog
+RECONCILE_SLICES = 150  # 4-host slices of the card's variant at FLEET_NODES, the card's among them
+RECONCILE_SOLOS = 300  # single hosts of the other H100 variant
+RECONCILE_CPUS = FLEET_NODES - RECONCILE_SLICES * FSM_SLICE_HOSTS - RECONCILE_SOLOS
+MAX_RECONCILE_PASSES = 8  # full passes the 1000-node world gets to read READY with every slice ready
+STEADY_PASSES = 5
+ROLLOUT_SLICES = 16  # 4-host slices of the roll's world: 64 nodes (PERF.md §7: a roll's cost outgrows the fleet)
+MAX_ROLLOUT_TICKS = 100  # ticks a roll may take; one that needs more fails
+ROLLOUT = {"enabled": True, "canary": 1, "waves": ["25%"], "observeSeconds": 0}
+ROLL_OLD = "550.90.07"  # what the simulated fleet's nodes report (kube/testing.py DEFAULT_DRIVER_VERSION)
+ROLL_NEW = FSM_VERSION
+ROLL_BAD = "550.163.01"  # registered bad: its validator readings at half the card's rates
+PASS_SPANS = ("pass.reconcile", "pass.shard_scope", "fsm.remediation", "fsm.rollout", "fsm.repartition",
+              "pass.slices")
+PREDICATE_LABEL = "chip-smoke.example.com/note"  # outside the watched prefixes
+
+
+class _KeyLog:
+    """The event router's manager: records every key it is handed (the
+    keyed workqueue and its workers belong to the manager)."""
+
+    def __init__(self):
+        import threading
+
+        self._lock = threading.Lock()
+        self._keys = []
+
+    def enqueue(self, key, delay: float = 0.0) -> None:
+        with self._lock:
+            self._keys.append(key)
+
+    def take(self) -> list:
+        with self._lock:
+            out, self._keys = self._keys, []
+        return out
+
+
+class _ScopedShard:
+    """A replica's shard view that owns every slice but not the full pass:
+    the reconciler runs its scoped pass (``pass.shard_scope``)."""
+
+    def owns_full_pass(self) -> bool:
+        return False
+
+    def covers_slice(self, sid: str) -> bool:
+        return True
+
+
+def _reconciler_world(port: int, ns: str):
+    """A ``CachedClient`` over the KubeSim at ``port`` with its informers
+    synced, the operator namespace set, and a ``synced()`` that waits for
+    the cache to catch up with the server."""
+    import threading
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.kube import cache, kubesim
+
+    raw = kubesim.make_client(port)
+    stop = threading.Event()
+    cached = cache.CachedClient(kubesim.make_client(port), namespace=ns, resync_interval_s=0)
+    namespace_env = os.environ.get(consts.OPERATOR_NAMESPACE_ENV)
+    os.environ[consts.OPERATOR_NAMESPACE_ENV] = ns
+    if not cached.start_informers(stop, timeout_s=SYNC_TIMEOUT_S):
+        _stop_controller(cached, stop, None, raw, namespace_env)
+        raise RuntimeError("the informers did not sync")
+
+    def synced():
+        _wait_for("the cache to catch up with the server", lambda: _cache_caught_up(cached, raw, ns), SYNC_TIMEOUT_S)
+
+    return raw, cached, stop, namespace_env, synced
+
+
+def run_reconcile_pass(port: int, ns: str, sim, card: str, slices: dict, nodes: list, cpu_nodes: list,
+                       capacity) -> dict:
+    """Part A of phase 14: the port's ``ClusterPolicyReconciler`` over a
+    ``CachedClient`` on the 1000-node KubeSim at ``port`` (the card's node one
+    host of ``CARD_SLICE``) converges to READY with its status and one
+    ``Ready`` Event; five steady passes and one scoped pass write nothing;
+    ``node_event_needs_reconcile`` reads the cache's events; the event router
+    sends the card's validator flip to ``CARD_SLICE``'s key alone, and the
+    delta reconciler's slice pass moves ``status.slices`` without a full
+    pass. ``capacity(alloc)`` makes ``alloc`` of the card's cards
+    allocatable. Raises on any miss; returns the times."""
+    import queue
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.api.v1.clusterpolicy_types import State
+    from tpu_operator_torch.controllers import clusterpolicy_controller as cpc
+    from tpu_operator_torch.controllers import delta
+    from tpu_operator_torch.controllers.slice_status import VALIDATOR_APP
+    from tpu_operator_torch.kube import testing
+    from tpu_operator_torch.obs import trace
+
+    raw, cached, stop, namespace_env, synced = _reconciler_world(port, ns)
+    rec = None
+    nums = {}
+    cpus = set(cpu_nodes)
+    in_slices = {m for names in slices.values() for m in names}
+    units = len(slices) + sum(1 for n in nodes if n not in cpus and n not in in_slices)
+    members = slices[CARD_SLICE]
+    try:
+        rec = cpc.ClusterPolicyReconciler(cached)
+
+        def cp():
+            return raw.get(consts.API_VERSION, consts.CLUSTER_POLICY_KIND, "cluster-policy")
+
+        # 1. convergence: full passes and the simulated kubelets in turn
+        t0 = time.perf_counter()
+        for passes in range(1, MAX_RECONCILE_PASSES + 1):
+            res = rec.reconcile()
+            slices_now = (cp().get("status") or {}).get("slices") or {}
+            if res.ready and slices_now.get("ready") == slices_now.get("total") == units:
+                break
+            testing.simulate_kubelet_nodes(raw, ns, nodes)
+            synced()
+        else:
+            raise RuntimeError(f"{MAX_RECONCILE_PASSES} passes: {res}, status {cp().get('status')}")
+        nums["ready_passes"], nums["ready_s"] = passes, time.perf_counter() - t0
+        status = cp()["status"]
+        conds = {c["type"]: c for c in status.get("conditions") or []}
+        ready_events = [e for e in raw.list("v1", "Event", ns) if e.get("reason") == "Ready"]
+        labelled_cpu = [n for n in cpus if any(k.startswith(consts.DEPLOY_LABEL_PREFIX) for k in _labels_of(raw, n))]
+        if (status.get("state") != State.READY or conds.get("Ready", {}).get("status") != "True"
+                or [(e["type"], e["involvedObject"]["kind"], e.get("count")) for e in ready_events]
+                != [("Normal", consts.CLUSTER_POLICY_KIND, 1)] or labelled_cpu):
+            raise RuntimeError(f"status {status}; Ready events {ready_events}; CPU nodes labelled {labelled_cpu[:5]}")
+        log(f"reconcilers: {len(nodes)} nodes ({units} GPU slice units, {len(cpus)} CPU nodes) READY after "
+            f"{passes} passes in {nums['ready_s']:.2f} s; status.slices {status['slices']}; one Normal Ready Event "
+            f"({ready_events[0]['message']!r}); no CPU node labelled")
+
+        # 2. steady passes: no write, every span of the pass
+        synced()
+        trace.TRACER.reset()
+        trace.TRACER.enable()
+        writes0 = sim.writes_total()
+        steady = []
+        try:
+            for _ in range(STEADY_PASSES):
+                t0 = time.perf_counter()
+                res = rec.reconcile()
+                steady.append((time.perf_counter() - t0) * 1e3)
+                if not res.ready:
+                    raise RuntimeError(f"a steady pass read {res}")
+            layers = dict(rec.last_trace_summary)
+            rec.shard_state = _ScopedShard()
+            t0 = time.perf_counter()
+            res = rec.reconcile()
+            scoped_ms = (time.perf_counter() - t0) * 1e3
+            rec.shard_state = None
+            with tempfile.NamedTemporaryFile("w+", suffix=".json") as f:
+                trace.TRACER.export_chrome(f.name)
+                with open(f.name) as g:
+                    names = {ev["name"] for ev in json.load(g)["traceEvents"]}
+        finally:
+            rec.shard_state = None
+            trace.TRACER.disable()
+            trace.TRACER.reset()
+        writes = sim.writes_total() - writes0
+        missing = [s for s in PASS_SPANS if s not in names]
+        if writes or missing or not res.ready or not {"pass", "fsm"} <= set(layers):
+            raise RuntimeError(f"steady passes: {writes} writes, spans missing {missing}, scoped pass {res}, "
+                               f"layers {sorted(layers)}")
+        nums["steady_ms_mean"], nums["steady_ms_max"] = sum(steady) / len(steady), max(steady)
+        nums["scoped_ms"] = scoped_ms
+        log(f"steady: {STEADY_PASSES} traced passes {nums['steady_ms_mean']:.1f} ms mean, "
+            f"{nums['steady_ms_max']:.1f} ms at most, and one scoped pass {scoped_ms:.1f} ms: 0 writes; spans "
+            f"{', '.join(PASS_SPANS)}; layers of the last full pass {sorted(layers)}")
+
+        # 3. the predicate over the cache's (old, new)
+        seen = {card: cached.get("v1", "Node", card)}
+        events = queue.Queue()
+
+        def on_node(etype, obj):
+            if obj.get("kind") == "Node" and obj["metadata"]["name"] == card:
+                events.put((etype, seen.get(card), obj))
+                seen[card] = obj
+
+        cached.add_event_hook(on_node)
+
+        def delivered(what, changed):
+            """The next (old, new) of the card's node where ``changed``."""
+            deadline = time.monotonic() + SYNC_TIMEOUT_S
+            while time.monotonic() < deadline:
+                try:
+                    etype, old, new = events.get(timeout=1.0)
+                except queue.Empty:
+                    continue
+                if changed(old or {}, new):
+                    return cpc.node_event_needs_reconcile(etype, old, new)
+            raise RuntimeError(f"no event of the card's node for {what}")
+
+        def alloc(node):
+            return (node.get("status") or {}).get("allocatable", {}).get(consts.GPU_RESOURCE)
+
+        def label(key):
+            return lambda old, new: (old.get("metadata", {}).get("labels") or {}).get(key) != (
+                new["metadata"].get("labels") or {}).get(key)
+
+        n = capacity(None)
+        verdicts = {}
+        capacity(n - 1)
+        verdicts["one card unhealthy"] = delivered("mark_unhealthy", lambda old, new: alloc(new) == str(n - 1))
+        capacity(None)
+        delivered("mark_healthy", lambda old, new: alloc(new) == str(n))
+        product = _labels_of(raw, card)[consts.GPU_PRODUCT_LABEL]
+        raw.patch_labels("v1", "Node", card, labels={consts.GPU_PRODUCT_LABEL: product + "-edited"})
+        verdicts["product label"] = delivered("the product label", label(consts.GPU_PRODUCT_LABEL))
+        raw.patch_labels("v1", "Node", card, labels={consts.GPU_PRODUCT_LABEL: product})
+        delivered("the product label back", label(consts.GPU_PRODUCT_LABEL))
+        raw.patch_labels("v1", "Node", card, labels={PREDICATE_LABEL: "x"})
+        verdicts["another label"] = delivered("another label", label(PREDICATE_LABEL))
+        raw.patch_labels("v1", "Node", card, labels={PREDICATE_LABEL: None})
+        delivered("another label off", label(PREDICATE_LABEL))
+        if verdicts != {"one card unhealthy": True, "product label": True, "another label": False}:
+            raise RuntimeError(f"node_event_needs_reconcile: {verdicts}")
+        log(f"predicate over the cache's events: {verdicts}")
+
+        # 4. the delta path: the validator flip routed to the slice's key
+        synced()
+        keys = _KeyLog()
+        router = delta.EventRouter(keys, rec.delta, "cp", "upgrade")
+        router.enabled = True
+        validator = next(p for p in raw.list("v1", "Pod", ns, field_selector={"spec.nodeName": card})
+                         if p["metadata"]["labels"].get("app") == VALIDATOR_APP)
+        for m in members:
+            router.on_event("MODIFIED", cached.get("v1", "Node", m))
+        router.on_event("MODIFIED", cached.get("v1", "Pod", validator["metadata"]["name"], ns))
+        keys.take()
+        cached.add_event_hook(router.on_event)
+        passes = rec.passes_total
+        ready0 = cp()["status"]["slices"]["ready"]
+        sub_ms, echoes = [], []
+        for ready, want in ((False, "false"), (True, "true")):
+            pod = raw.get("v1", "Pod", validator["metadata"]["name"], ns)
+            pod["status"] = {"phase": "Running", "containerStatuses": [{"ready": ready}]}
+            raw.update_status(pod)
+            got = []
+            _wait_for("the router's key", lambda: got.extend(keys.take()) or got, SYNC_TIMEOUT_S)
+            synced()
+            got += keys.take()
+            if got != [(delta.SLICE_KIND, CARD_SLICE)]:
+                raise RuntimeError(f"the validator flip to ready={ready} routed {got}")
+            t0 = time.perf_counter()
+            rec.delta.reconcile_slice(CARD_SLICE)
+            sub_ms.append((time.perf_counter() - t0) * 1e3)
+            synced()
+            # the pass's own writes echo through the watch: the verdict
+            # labels (dropped once the mirror agrees) and the CR's status
+            echoes += keys.take()
+            verdict = {_labels_of(raw, m).get(consts.SLICE_READY_LABEL) for m in members}
+            got_ready = cp()["status"]["slices"]["ready"]
+            if verdict != {want} or got_ready != ready0 - (not ready) or rec.passes_total != passes:
+                raise RuntimeError(f"slice pass after ready={ready}: {CARD_SLICE}'s verdicts {verdict}, "
+                                   f"status.slices.ready {got_ready} of {ready0}, full passes "
+                                   f"{rec.passes_total - passes}")
+        nums["slice_pass_ms"] = sub_ms
+        log(f"delta: the card's validator not ready -> {[(delta.SLICE_KIND, CARD_SLICE)]} alone; "
+            f"reconcile_slice({CARD_SLICE!r}) {sub_ms[0]:.1f} ms lowered status.slices.ready {ready0} -> "
+            f"{ready0 - 1} and labelled its {len(members)} hosts false; the flip back restored it in "
+            f"{sub_ms[1]:.1f} ms; no full pass (a steady full pass {nums['steady_ms_mean']:.1f} ms); the passes' own "
+            f"writes echoed as {sorted(set(map(str, echoes)))}")
+        return nums
+    finally:
+        _stop_controller(cached, stop, rec.ctrl if rec is not None else None, raw, namespace_env)
+
+
+def run_rollout(port: int, ns: str, card: str, slices: dict, nodes: list) -> dict:
+    """Part B of phase 14: on the KubeSim at ``port`` (``slices``, 4-host
+    slices, the card's node in ``CARD_SLICE``), the ClusterPolicy and upgrade
+    reconcilers over a ``CachedClient`` stage a clean driver roll to
+    ``complete`` and roll a bad version back from its canary. A tick is a
+    full pass, a kubelet sweep and an upgrade pass. Raises on any miss;
+    returns the ticks and seconds."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.controllers import clusterpolicy_controller as cpc
+    from tpu_operator_torch.controllers import rollout as ro
+    from tpu_operator_torch.kube import testing
+    from tpu_operator_torch.obs import flight
+    from tpu_operator_torch.upgrade import upgrade_controller as uc
+    from tpu_operator_torch.upgrade import upgrade_state as us
+
+    raw, cached, stop, namespace_env, synced = _reconciler_world(port, ns)
+    rec = None
+    nums = {}
+    slice_of = {m: sid for sid, names in slices.items() for m in names}
+    cap = us.parse_max_unavailable(FSM_BUDGET, len(slices))
+    pending = (consts.UPGRADE_STATE_UPGRADE_REQUIRED,) + tuple(consts.UPGRADE_ACTIVE_STATES)
+    try:
+        testing.edit_clusterpolicy(raw, lambda cr: (cr["spec"]["driver"].update(version=ROLL_OLD, upgradePolicy={
+            "autoUpgrade": True, "maxParallelUpgrades": len(nodes), "maxUnavailable": FSM_BUDGET,
+            "drain": {"enable": True, "timeoutSeconds": 300}}), cr["spec"].__setitem__("rollout", dict(ROLLOUT))))
+        synced()
+        rec, upg = cpc.ClusterPolicyReconciler(cached), uc.UpgradeReconciler(cached, ns)
+        worst = [0]
+
+        def tick():
+            rec.reconcile()
+            testing.simulate_kubelet_nodes(raw, ns, nodes)
+            synced()
+            upg.reconcile()
+            synced()
+            now = {n["metadata"]["name"]: n["metadata"].get("labels") or {} for n in raw.list("v1", "Node")}
+            disrupted = {slice_of[n] for n, lab in now.items() if lab.get(consts.UPGRADE_STATE_LABEL) in (
+                tuple(consts.UPGRADE_ACTIVE_STATES) + (consts.UPGRADE_STATE_FAILED,))}
+            worst[0] = max(worst[0], len(disrupted))
+            if len(disrupted) > cap:
+                raise RuntimeError(f"{len(disrupted)} slices disrupted, over {FSM_BUDGET} ({cap})")
+            return now
+
+        def ledger():
+            return ro.load_record(raw.get(consts.API_VERSION, consts.CLUSTER_POLICY_KIND, "cluster-policy"))
+
+        def roll(what, done):
+            t0 = time.perf_counter()
+            for ticks in range(1, MAX_ROLLOUT_TICKS + 1):
+                now = tick()
+                if done(now):
+                    return ticks, time.perf_counter() - t0
+            raise RuntimeError(f"{what}: {MAX_ROLLOUT_TICKS} ticks, ledger {ledger()}")
+
+        def settled(version, state):
+            def done(now):
+                rec_now = ledger()
+                return ((state is None or (rec_now or {}).get("state") == state)
+                        and all(lab.get(consts.DRIVER_VERSION_LABEL) == version
+                                and lab.get(consts.UPGRADE_STATE_LABEL) not in pending for lab in now.values()))
+            return done
+
+        ticks, secs = roll("convergence", settled(ROLL_OLD, None))
+        if ledger() is not None:
+            raise RuntimeError(f"a roll was staged before any version edit: {ledger()}")
+        log(f"rollout world: {len(nodes)} nodes in {len(slices)} slices of {FSM_SLICE_HOSTS} hosts on {ROLL_OLD} "
+            f"after {ticks} ticks, {secs:.2f} s")
+
+        # the clean roll
+        driver_pod = next(p for p in raw.list("v1", "Pod", ns, field_selector={"spec.nodeName": card})
+                          if p["metadata"]["labels"]["app"].startswith(consts.DRIVER_APP))["metadata"]
+        testing.edit_clusterpolicy(raw, lambda cr: cr["spec"]["driver"].update(version=ROLL_NEW))
+        synced()
+        worst[0] = 0
+        nums["clean_ticks"], nums["clean_s"] = roll("the clean roll", settled(ROLL_NEW, ro.STATE_COMPLETE))
+        led = ledger()
+        stats = rec.rollout.stats()
+        status = raw.get(consts.API_VERSION, consts.CLUSTER_POLICY_KIND, "cluster-policy")["status"].get("rollout")
+        prev = {n: (raw.get("v1", "Node", n)["metadata"].get("annotations") or {}).get(
+            consts.UPGRADE_PREVIOUS_VERSION_ANNOTATION) for n in nodes}
+        new = next(p for p in raw.list("v1", "Pod", ns, field_selector={"spec.nodeName": card})
+                   if p["metadata"]["labels"]["app"] == driver_pod["labels"]["app"])["metadata"]
+        ds = raw.get("apps/v1", "DaemonSet", driver_pod["labels"]["app"], ns)
+        want_hash = ds["spec"]["template"]["metadata"]["annotations"][consts.LAST_APPLIED_HASH_ANNOTATION]
+        misses = {
+            "ledger": (led["kind"], led["state"], led["target"], led["previous"]) != (
+                ro.KIND_DRIVER, ro.STATE_COMPLETE, ROLL_NEW, ROLL_OLD),
+            "counts": (stats["promotions_total"], stats["pauses_total"], stats["rollbacks_total"]) != (2, 0, 0),
+            "status": status != {"kind": ro.KIND_DRIVER, "target": ROLL_NEW, "state": ro.STATE_COMPLETE,
+                                 "stage": "3/3", "previous": ROLL_OLD},
+            "previous": set(prev.values()) != {ROLL_OLD},
+            "driver pod": new["uid"] == driver_pod["uid"] or new["annotations"][
+                consts.LAST_APPLIED_HASH_ANNOTATION] != want_hash,
+            "card version": _labels_of(raw, card).get(consts.DRIVER_VERSION_LABEL) != ROLL_NEW,
+        }
+        if any(misses.values()):
+            raise RuntimeError(f"clean roll: {[k for k, v in misses.items() if v]}; ledger {led}; stats {stats}; "
+                               f"status.rollout {status}; previous versions {set(prev.values())}")
+        nums["clean_worst_disrupted"] = worst[0]
+        log(f"clean roll {ROLL_OLD} -> {ROLL_NEW}: complete in {nums['clean_ticks']} ticks, {nums['clean_s']:.2f} s, "
+            f"{stats['promotions_total']} promotions, 0 pauses, 0 rollbacks; status.rollout {status}; the card's "
+            f"{driver_pod['name']} recreated at {want_hash}; at most {worst[0]} of {len(slices)} slices disrupted "
+            f"(cap {cap})")
+
+        # the bad version, rolled back from its canary
+        dumps0 = set(flight.RECORDER.dump_paths_snapshot())
+        testing.inject_bad_version(ROLL_BAD, tflops_factor=0.5)
+        try:
+            testing.edit_clusterpolicy(raw, lambda cr: cr["spec"]["driver"].update(version=ROLL_BAD))
+            synced()
+            worst[0] = 0
+            nums["bad_ticks"], nums["bad_s"] = roll("the bad roll", settled(ROLL_NEW, ro.STATE_ROLLED_BACK))
+        finally:
+            testing.clear_bad_versions()
+        led = ledger()
+        canary = [m for sid in (led.get("cohorts") or [[]])[0] for m in slices.get(sid, [sid])]
+        # the FSM stamps a node's version at admission: the clean roll left
+        # ROLL_OLD on every node, so a node stamped since joined this roll
+        admitted = sorted(n for n in nodes if (raw.get("v1", "Node", n)["metadata"].get("annotations") or {}).get(
+            consts.UPGRADE_PREVIOUS_VERSION_ANNOTATION) != ROLL_OLD)
+        warnings = [e["message"] for e in raw.list("v1", "Event", ns) if e.get("reason") == "RolloutRolledBack"]
+        dumps = [p for p in flight.RECORDER.dump_paths_snapshot() if p not in dumps0 and "rollout-rollback" in p]
+        misses = {
+            "ledger": (led["state"], led["target"], led["previous"]) != (ro.STATE_ROLLED_BACK, ROLL_BAD, ROLL_NEW),
+            "evidence": not any("TFLOPS" in ev for ev in led.get("evidence") or []),
+            "canary": len(canary) != FSM_SLICE_HOSTS or admitted != sorted(canary),
+            "event": len(warnings) != 1 or "TFLOPS" not in warnings[0],
+            "dump": len(dumps) != 1,
+        }
+        if any(misses.values()):
+            raise RuntimeError(f"bad roll: {[k for k, v in misses.items() if v]}; ledger {led}; admitted "
+                               f"{admitted} of canary {canary}; warnings {warnings}; dumps {dumps}")
+        nums["bad_worst_disrupted"] = worst[0]
+        log(f"bad roll {ROLL_NEW} -> {ROLL_BAD}: rolled back in {nums['bad_ticks']} ticks, {nums['bad_s']:.2f} s; "
+            f"only the canary {led['cohorts'][0]} ({len(canary)} hosts) admitted, back on {ROLL_NEW}; "
+            f"evidence {led['evidence'][:2]}; one Warning Event, one flight dump")
+        return nums
+    finally:
+        _stop_controller(cached, stop, rec.ctrl if rec is not None else None, raw, namespace_env)
+
+
+def phase_reconcilers() -> None:
+    """The reconcilers on the card's node (phase 14). Part A: the card's
+    node, one host of ``CARD_SLICE``, joins a 1000-node fleet of 4-host
+    slices, single hosts of the other H100 variant and CPU nodes on one
+    KubeSim, with the device plugin over the real cards advertising its
+    capacity; ``run_reconcile_pass`` drives whole reconcile passes and the
+    delta path. Part B: a 64-node world of 4-host slices on a second
+    KubeSim; ``run_rollout`` stages a clean driver roll and a bad one."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.kube import kubesim, testing
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.obs import flight
+    from tpu_operator_torch.workloads.topology import device_generation
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    n = torch.cuda.device_count()
+    chips = gpuinfo.chip_summary()
+    card_variant = device_generation(torch.cuda.get_device_name(0))
+    if card_variant is None or len(chips) != n:
+        raise RuntimeError(f"{torch.cuda.get_device_name(0)!r} is no H100 variant, or the chip table {chips}")
+    ns = consts.DEFAULT_NAMESPACE
+    faulthandler.dump_traceback_later(RECONCILERS_TIMEOUT_S, exit=True)
+    flight_dir = flight.RECORDER.dir
+    with tempfile.TemporaryDirectory(prefix="cs14-") as tmp:
+        flight.RECORDER.dir = os.path.join(tmp, "flight")
+        servers, kubelet, plugin_server = [], None, None
+        try:
+            labels = tfd.gather_features({"metadata": {"name": OPERANDS_NODE, "labels": {}}},
+                                         dev_root="/dev", driver_root="/", env={}, chips=chips)
+            check_features(labels, n)
+            servers.append(kubesim.KubeSimServer(port=0).start())
+            raw = kubesim.make_client(servers[0].port)
+            testing.seed_cluster(raw, ns, node_names=())
+            slices, nodes, cpus, _ = fsm_fleet(raw, servers[0].sim, OPERANDS_NODE, labels, card_variant,
+                                               RECONCILE_SLICES, RECONCILE_SOLOS, RECONCILE_CPUS)
+            kubelet, plugin_server, capacity = card_device_plugin(servers[0].port, tmp, chips)
+            capacity(None)
+            nums = run_reconcile_pass(servers[0].port, ns, servers[0].sim, OPERANDS_NODE, slices, nodes, cpus,
+                                      capacity)
+            plugin_server.stop()
+            kubelet.stop()
+            kubelet = plugin_server = None
+            servers.pop().stop()
+
+            servers.append(kubesim.KubeSimServer(port=0).start())
+            raw = kubesim.make_client(servers[0].port)
+            testing.seed_cluster(raw, ns, node_names=())
+            unversioned = {k: v for k, v in labels.items() if k != consts.DRIVER_VERSION_LABEL}
+            slices, nodes, _, _ = fsm_fleet(raw, servers[0].sim, OPERANDS_NODE, unversioned, card_variant,
+                                            ROLLOUT_SLICES, 0, 0)
+            servers[0].sim.set_node_chips(OPERANDS_NODE, n)
+            nums.update(run_rollout(servers[0].port, ns, OPERANDS_NODE, slices, nodes))
+        finally:
+            if plugin_server is not None:
+                plugin_server.stop()
+            if kubelet is not None:
+                kubelet.stop()
+            for server in servers:
+                server.stop()
+            flight.RECORDER.dir = flight_dir
+            faulthandler.cancel_dump_traceback_later()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the reconcilers launched kernels of the package: {launched}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"reconcilers on: {smi.stdout.strip() or smi.stderr.strip()}; {json.dumps(nums)}; "
+        f"no kernel of the package launched; phase 14 {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_cli(chain) -> None:
@@ -3770,6 +4277,7 @@ def main() -> int:
     phase_control_plane_rw()
     phase_state_machine()
     phase_node_fsms()
+    phase_reconcilers()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

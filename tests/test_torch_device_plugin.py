@@ -673,6 +673,8 @@ def test_transport_free_path_needs_no_grpc_protobuf_or_yaml(dev_roots):
     that needs PyYAML, and only where it loads a state directory (the
     assets ``ClusterPolicyController.init`` reads), so no import needs
     it. The node FSMs (the upgrade, remediation and the re-partition roll)
+    and the reconcilers (the ClusterPolicy reconciler, the delta reconciler
+    and event router, the whole rollout module and the upgrade reconciler)
     import too, and a node carrying each of the upgrade FSM's renamed labels
     and annotations crosses ``convert`` to the reference's names and back."""
     code = f"""
@@ -698,7 +700,9 @@ for mod in ("tpu_operator_torch", "tpu_operator_torch.workloads.topology",
             "tpu_operator_torch.controllers.object_controls", "tpu_operator_torch.controllers.slice_status",
             "tpu_operator_torch.controllers.rollout", "tpu_operator_torch.upgrade.upgrade_state",
             "tpu_operator_torch.controllers.remediation", "tpu_operator_torch.controllers.repartition",
-            "tpu_operator_torch.sliceman.slice_manager", "tpu_operator_torch.kube.disruption"):
+            "tpu_operator_torch.sliceman.slice_manager", "tpu_operator_torch.kube.disruption",
+            "tpu_operator_torch.controllers.clusterpolicy_controller", "tpu_operator_torch.controllers.delta",
+            "tpu_operator_torch.upgrade.upgrade_controller"):
     importlib.import_module(mod)
 from tpu_operator_torch import consts, convert
 renamed = [consts.UPGRADE_SKIP_LABEL, consts.UPGRADE_SKIP_DRAIN_LABEL] + list(convert.ANNOTATION_KEYS.values())

@@ -1,7 +1,7 @@
 """The port's node-health remediation (``controllers/remediation.py``)
-against the JAX package's, on the 19 cases of ``tests/test_remediation.py``
-without ``test_reconciler_reports_systemic_condition`` (which needs the
-reconciler), and the port's operand filter.
+against the JAX package's, on the 20 cases of ``tests/test_remediation.py``
+(``test_reconciler_reports_systemic_condition`` through both ClusterPolicy
+reconcilers) and the port's operand filter.
 
 Each case runs one script on both sides over paired worlds, as
 ``tests/test_torch_upgrade.py`` sets out (``World``, ``both``): the
@@ -508,3 +508,41 @@ def test_restart_rung_deletes_gpu_operands_and_no_user_pod():
                   if p["spec"]["nodeName"] == "node-1")
     assert left == ["user"]
     assert all(w.pod(f"plugin-node-{i}") is not None for i in (2, 3, 4))
+
+
+def test_reconciler_reports_systemic_condition(monkeypatch, pinned_clock):  # noqa: F811
+    """``tests/test_remediation.py::test_reconciler_reports_systemic_condition``
+    through both ClusterPolicy reconcilers, compared as
+    ``tests/test_torch_reconciler.py`` sets out: a fleet wholly unhealthy
+    opens the breaker, reported as ``status.remediation`` and a
+    ``Degraded/SystemicNodeFailure`` condition; the fleet's recovery lifts
+    both."""
+    from tests.test_torch_reconciler import both as reconcile_both, pair_sides
+
+    pair_sides(monkeypatch, pinned_clock)
+
+    def script(w):
+        for i in (1, 2):
+            w.create(tpu_node(f"node-{i}", chips="0"))
+        w.create_cr(edit=lambda cr: cr["spec"].update(remediation={
+            "enabled": True, "backoffSeconds": 0, "systemicThreshold": "50%"}))
+        r = w.reconciler()
+        res = r.reconcile()
+        status = w.cp()["status"]
+        degraded = {c["type"]: c for c in status["conditions"]}["Degraded"]
+        first = (res.requeue_after is not None, (status.get("remediation") or {}).get("unhealthy"),
+                 (status.get("remediation") or {}).get("breakerOpen"), degraded["status"], degraded["reason"])
+        for i in (1, 2):
+            n = w.node(f"node-{i}")
+            n["status"]["allocatable"][w.side.resource] = "8"
+            w.client.update(n)
+            w.create(make_validator_pod(f"node-{i}", True, NS))
+        r.reconcile()
+        r.reconcile()
+        status = w.cp()["status"]
+        return first, "remediation" in status, {c["type"]: c for c in status["conditions"]}["Degraded"]["reason"]
+
+    ref, port = reconcile_both(script)
+    assert ref == port
+    assert port[0] == (True, 2, True, "True", "SystemicNodeFailure")
+    assert port[1] is False and port[2] != "SystemicNodeFailure"

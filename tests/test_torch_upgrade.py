@@ -1,6 +1,7 @@
-"""The port's rolling driver upgrade (``upgrade/upgrade_state.py``) against
-the JAX package's, on the cases of ``tests/test_upgrade.py`` and
-``tests/test_upgrade_slices.py`` that need no reconciler or manager.
+"""The port's rolling driver upgrade (``upgrade/upgrade_state.py``, and its
+reconciler ``upgrade/upgrade_controller.py``) against the JAX package's, on
+the cases of ``tests/test_upgrade.py`` and ``tests/test_upgrade_slices.py``
+that need no manager.
 
 Each case runs one script on both sides over paired worlds built from one
 table. The script builds the reference's objects with the reference's own
@@ -27,9 +28,8 @@ later than now, no earlier than the oldest backdating a case writes).
 ``random.uniform`` is pinned to its upper bound and both remediation
 modules' ``_utc_now`` read one clock (``pinned_clock``).
 
-The 29 cases of ``tests/test_upgrade.py`` without
-``test_upgrade_reconciler_gates`` and the 8 of ``tests/test_upgrade_slices.py``
-without the wire case keep their names; the rest hold the port's own
+The 30 cases of ``tests/test_upgrade.py`` and the 8 of
+``tests/test_upgrade_slices.py`` without the wire case keep their names; the rest hold the port's own
 names: the per-variant driver DaemonSets, the validator app and the
 previous-version annotation read from ``DRIVER_VERSION_LABEL``.
 """
@@ -1040,3 +1040,31 @@ def test_maintenance_on_one_member_holds_whole_slice_cordoned():
 
     assert both(script) == (({us.STATE_UNCORDON_REQUIRED}, ({us.STATE_UNCORDON_REQUIRED}, True), {us.STATE_DONE},
                              False),) * 2
+
+
+def test_upgrade_reconciler_gates(monkeypatch):
+    """``tests/test_upgrade.py::test_upgrade_reconciler_gates``: with
+    ``autoUpgrade`` off the upgrade reconciler clears the FSM's state labels
+    and asks for no requeue; on, it requeues at ``REQUEUE_S``. The port reads
+    ``spec.driver.upgradePolicy`` (the reference's ``spec.libtpu``)."""
+    from tests.test_torch_reconciler import ref_cr
+    from tpu_operator.upgrade import upgrade_controller as ref_uc
+    from tpu_operator_torch.upgrade import upgrade_controller as uc
+
+    monkeypatch.setenv(consts.OPERATOR_NAMESPACE_ENV, NS)
+
+    def script(w):
+        ref = w.side.name == "reference"
+        cluster(w)
+        cr = ref_cr(edit=lambda cr: cr["spec"]["libtpu"].update(upgradePolicy={"autoUpgrade": False}))
+        w.client.create(cr if ref else convert.clusterpolicy_from_reference(cr))
+        w.relabel("node-1", UPGRADE_STATE_LABEL=w.side.us.STATE_DONE)
+        r = (ref_uc if ref else uc).UpgradeReconciler(w.client, NS)
+        first = r.reconcile().requeue_after, w.state("node-1")
+        cp = w.client.get(consts.API_VERSION, "ClusterPolicy", "cluster-policy")
+        cp["spec"]["libtpu" if ref else "driver"]["upgradePolicy"] = {"autoUpgrade": True}
+        w.client.update(cp)
+        return first, r.reconcile().requeue_after
+
+    assert both(script) == (((None, None), uc.REQUEUE_S),) * 2
+    assert uc.REQUEUE_S == 120.0
