@@ -274,6 +274,28 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    outside it admitted, with one Warning Event naming the evidence and one
    flight dump; the times and the card's name and power limit are logged;
    this path launches none of K1-K7c;
+15. (after 14, before 4) the operator process on the card's node, under a
+   watchdog of ``OPERATOR_TIMEOUT_S``. The shipped ``python -m
+   tpu_operator_torch.main --kubesim --simulate-kubelet --once`` exits 0 at
+   ``--nodes`` 1 and 256 (its wall time is the port's ``time_to_ready_s``),
+   2 without ``--simulate-kubelet``, and 0 with ``--grpc-kubelet``, its
+   node advertising ``nvidia.com/gpu`` equal to the card count. On a
+   KubeSim with the ``FSM_FLEET_NODES``-node fleet of phase 13 (the device
+   plugin over the real cards serving the card's node), the whole operator
+   (``build_manager`` with probe and debug endpoints, ``wire_event_sources``,
+   the manager's workers, through ``running_operator``) reaches READY;
+   ``/healthz`` answers ok and ``/debug/vars`` holds ``DEBUG_VARS_KEYS`` with
+   sharding off; a window of ``STEADY_WINDOW_S`` writes nothing; a deploy
+   label deleted from the card's node comes back by a delta node pass
+   through the workqueue and no full pass; every card unhealthy turns
+   ``slice-card`` not ready in ``status.slices``, healthy again ready. On a
+   second KubeSim of ``FAILOVER_SLICES`` 4-host slices, two managers with
+   leader election hand ``gpu-operator-leader`` over when the holder stops,
+   and two replicas with ``GPU_SHARDS=2`` split ``gpu-operator-shard-0/1``;
+   the shard-0 holder stops without releasing its lease and the survivor
+   owns both, confirms shard 0 live and runs its full pass with the CR
+   READY; the times and the card's name and power limit are logged; this
+   path launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -4233,6 +4255,344 @@ def phase_reconcilers() -> None:
         f"no kernel of the package launched; phase 14 {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the operator process on the card's node
+# ---------------------------------------------------------------------------
+
+OPERATOR_TIMEOUT_S = 600  # the phase's watchdog
+OPERATOR_ONCE_NODES = (1, FSM_FLEET_NODES)  # --nodes of the shipped process's --once runs
+FAILOVER_SLICES = 16  # 4-host slices of the failover world: 64 nodes
+LEADER_LEASE_S = 3  # the leader Lease in the failover (the shipped 30 s would hold the phase)
+SHARD_LEASE_S = 3  # GPU_SHARD_LEASE_S of the sharded replicas
+STEADY_WINDOW_S = 2.0  # a window after READY that must issue no write
+OPERATOR_WAIT_S = 120  # for a READY, a restore, a flip or a takeover
+RESTORED_LABEL = "device-plugin"  # the deploy label deleted from the card's node
+# the keys of the reference's shipped /debug/vars payload (its build_manager
+# over a cached client: tpu_operator/main.py:364-413, manager.py:638-686)
+DEBUG_VARS_KEYS = (
+    "allocation", "apply_batches", "applyset", "delta_reconcile", "fault_tolerance", "flight", "informer_cache",
+    "informer_drift_repairs", "informer_reads", "last_reconcile_ok", "queue_len", "reconcile_snapshot",
+    "reconcilers", "remediation", "render_cache", "repartition", "rollout", "shards", "threads", "trace",
+    "watchdog", "write_pipeline")
+
+
+def _once(args: list) -> tuple:
+    """``python -m tpu_operator_torch.main --kubesim --once`` with ``args``
+    as a subprocess: ``(rc, seconds to exit, stderr)``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_operator_torch.main", "--kubesim", "--once",
+                           "--metrics-port", "0", "--probe-port", "0", *args],
+                          capture_output=True, text=True, timeout=OPERATOR_TIMEOUT_S)
+    return proc.returncode, time.perf_counter() - t0, proc.stderr
+
+
+def run_operator_process(n: int) -> dict:
+    """Part A of phase 15: the shipped process. ``--simulate-kubelet``
+    at each of ``OPERATOR_ONCE_NODES`` exits 0 (its wall time to exit is
+    the port's ``time_to_ready_s``); without the kubelet it exits 2; with
+    ``--grpc-kubelet`` it exits 0 and its node advertises the ``n`` cards
+    NVML reports, whatever the stub devfs holds."""
+    nums = {}
+    for nodes in OPERATOR_ONCE_NODES:
+        rc, secs, err = _once(["--simulate-kubelet", "--nodes", str(nodes)])
+        if rc != 0 or "ready=True" not in err:
+            raise RuntimeError(f"--once --nodes {nodes} exited {rc}:\n{err[-3000:]}")
+        nums[f"time_to_ready_s_{nodes}"] = secs
+    rc, secs, err = _once(["--nodes", "1"])
+    if rc != 2 or "ready=False" not in err:
+        raise RuntimeError(f"--once without the kubelet exited {rc}:\n{err[-3000:]}")
+    nums["not_ready_s"] = secs
+    rc, secs, err = _once(["--nodes", "1", "--grpc-kubelet", "--simulate-kubelet"])
+    got = re.search(r"gRPC kubelet: node fake-gpu-node-1 allocatable nvidia\.com/gpu=(\S+)", err)
+    if rc != 0 or got is None or got.group(1) != str(n):
+        raise RuntimeError(f"--grpc-kubelet exited {rc} advertising {got and got.group(1)} of {n} cards:\n"
+                           f"{err[-3000:]}")
+    nums["grpc_kubelet_s"] = secs
+    log(f"operator process: --once --simulate-kubelet exited 0 after "
+        + ", ".join(f"{nums[f'time_to_ready_s_{k}']:.2f} s at {k} node{'s' * (k > 1)}" for k in OPERATOR_ONCE_NODES)
+        + f" (time_to_ready_s); without the kubelet 2 after {nums['not_ready_s']:.2f} s; --grpc-kubelet 0 after "
+          f"{secs:.2f} s with allocatable nvidia.com/gpu={n}, the card count")
+    return nums
+
+
+def _cr_status(raw) -> dict:
+    from tpu_operator_torch import consts
+
+    return raw.get(consts.API_VERSION, consts.CLUSTER_POLICY_KIND, "cluster-policy").get("status") or {}
+
+
+def _degraded(raw) -> list:
+    return (_cr_status(raw).get("slices") or {}).get("degraded") or []
+
+
+def _settle(sim) -> float:
+    """Seconds until a window of ``STEADY_WINDOW_S`` passes with no write
+    request on ``sim``; raises after ``OPERATOR_WAIT_S``."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < OPERATOR_WAIT_S:
+        writes = sim.writes_total()
+        time.sleep(STEADY_WINDOW_S)
+        if sim.writes_total() == writes:
+            return time.perf_counter() - t0 - STEADY_WINDOW_S
+    raise RuntimeError(f"no {STEADY_WINDOW_S} s window without a write within {OPERATOR_WAIT_S} s")
+
+
+def run_operator_in_process(port: int, ns: str, sim, card: str, nodes: list, capacity) -> dict:
+    """Part B of phase 15: the whole operator (``build_manager`` with its
+    probe server and debug endpoints, ``wire_event_sources``, the manager's
+    workers) through ``running_operator`` on the KubeSim at ``port``: READY;
+    ``/healthz`` and ``/debug/vars``; a deploy label deleted from the card's
+    node restored by a delta node pass through the workqueue and no full
+    pass; every card unhealthy turns the card's slice not ready in
+    ``status.slices`` and healthy again ready; a window with no write."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.kube import kubesim, testing
+
+    raw = kubesim.make_client(port)
+    probe = _free_port()
+    nums = {}
+    namespace_env = os.environ.get(consts.OPERATOR_NAMESPACE_ENV)
+    os.environ[consts.OPERATOR_NAMESPACE_ENV] = ns
+    try:
+        t0 = time.perf_counter()
+        with testing.running_operator(kubesim.make_client(port), ns, nodes, probe_port=probe,
+                                      debug_endpoints=True) as mgr:
+            _wait_for("READY with every slice ready", lambda: _cr_status(raw).get("state") == "ready" and (
+                _cr_status(raw).get("slices") or {}).get("total") and not _degraded(raw), OPERATOR_WAIT_S)
+            nums["ready_s"] = time.perf_counter() - t0
+            healthz = _get(probe, "/healthz")
+            debug = json.loads(_get(probe, "/debug/vars"))
+            missing = sorted(set(DEBUG_VARS_KEYS) - set(debug))
+            if healthz != "ok" or missing or debug["shards"] != {"enabled": False}:
+                raise RuntimeError(f"/healthz {healthz!r}; /debug/vars lacks {missing}; shards {debug['shards']}")
+            nums["settle_s"] = _settle(sim)
+
+            key = consts.DEPLOY_LABEL_PREFIX + RESTORED_LABEL
+            before = mgr.delta.stats()
+            t0 = time.perf_counter()
+            raw.patch_labels("v1", "Node", card, labels={key: None})
+            _wait_for("the deploy label restored", lambda: _labels_of(raw, card).get(key) == "true", OPERATOR_WAIT_S)
+            nums["label_restore_s"] = time.perf_counter() - t0
+            after = mgr.delta.stats()
+            if after["node_passes"] <= before["node_passes"] or after["full_passes"] != before["full_passes"]:
+                raise RuntimeError(f"the label came back by node passes {before['node_passes']} -> "
+                                   f"{after['node_passes']}, full passes {before['full_passes']} -> "
+                                   f"{after['full_passes']}")
+
+            t0 = time.perf_counter()
+            capacity(0)
+            _wait_for("the card's slice not ready", lambda: CARD_SLICE in _degraded(raw), OPERATOR_WAIT_S)
+            nums["unhealthy_flip_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            capacity(None)
+            _wait_for("the card's slice ready again", lambda: CARD_SLICE not in _degraded(raw), OPERATOR_WAIT_S)
+            nums["healthy_flip_s"] = time.perf_counter() - t0
+            flips = mgr.delta.stats()
+            if flips["full_passes"] != before["full_passes"]:
+                raise RuntimeError(f"the flips ran {flips['full_passes'] - before['full_passes']} full passes")
+            w0 = sim.writes_total()
+            time.sleep(STEADY_WINDOW_S)
+            nums["steady_writes"] = sim.writes_total() - w0
+            if nums["steady_writes"]:
+                raise RuntimeError(f"a {STEADY_WINDOW_S} s window after the flips wrote {nums['steady_writes']}")
+        log(f"operator in process: {len(nodes)} nodes READY in {nums['ready_s']:.2f} s; /healthz ok; /debug/vars "
+            f"holds the reference's {len(DEBUG_VARS_KEYS)} keys, shards {{'enabled': False}}; no write in "
+            f"{STEADY_WINDOW_S} s after {nums['settle_s']:.2f} s; {key} restored in {nums['label_restore_s']:.2f} s by "
+            f"{after['node_passes'] - before['node_passes']} node pass(es), no full pass; every card unhealthy -> "
+            f"{CARD_SLICE} not ready in {nums['unhealthy_flip_s']:.2f} s, healthy -> ready in "
+            f"{nums['healthy_flip_s']:.2f} s, no full pass; then {STEADY_WINDOW_S} s without a write")
+        return nums
+    finally:
+        if namespace_env is None:
+            os.environ.pop(consts.OPERATOR_NAMESPACE_ENV, None)
+        else:
+            os.environ[consts.OPERATOR_NAMESPACE_ENV] = namespace_env
+
+
+def run_failover(port: int, ns: str, nodes: list) -> dict:
+    """Part C of phase 15, on the KubeSim at ``port``: two managers with
+    leader election (``LEADER_LEASE_S``): the holder stops, the other
+    takes ``gpu-operator-leader`` and runs a READY pass; then two sharded
+    replicas (``GPU_SHARDS=2``, one shard each) split
+    ``gpu-operator-shard-0/1``; the shard-0 holder stops without releasing
+    its lease, and the survivor owns both, confirms the full pass live and
+    runs it with the CR READY."""
+    import threading
+
+    from tpu_operator_torch import consts, main, shard
+    from tpu_operator_torch.kube import kubesim, testing
+
+    raw = kubesim.make_client(port)
+    halt = threading.Event()
+    running = []  # (manager, stop event)
+    nums = {}
+    saved = {k: os.environ.get(k) for k in (consts.OPERATOR_NAMESPACE_ENV, "GPU_SHARDS", "GPU_SHARD_MAX",
+                                            "GPU_SHARD_LEASE_S")}
+    os.environ[consts.OPERATOR_NAMESPACE_ENV] = ns
+
+    def kubelet():
+        while not halt.is_set():
+            try:
+                testing.simulate_kubelet_nodes(raw, ns, nodes)
+            except Exception:  # noqa: BLE001  (races with the operators; retried next sweep)
+                pass
+            halt.wait(0.15)
+
+    def replica(leader_election=False):
+        client = kubesim.make_client(port)
+        mgr, rec, _ = main.build_manager(client, ns, metrics_port=0, probe_port=0, leader_election=leader_election)
+        mgr.lease_seconds = LEADER_LEASE_S
+        stop = threading.Event()
+        running.append((mgr, stop))
+        main.wire_event_sources(mgr, client, ns, stop_event=stop)
+        started = threading.Thread(target=mgr.start, daemon=True)  # a candidate's start waits for the lease
+        started.start()
+        return mgr, rec, started
+
+    def lease(name):
+        return raw.get_or_none("coordination.k8s.io/v1", "Lease", name, ns)
+
+    def halt_replica(mgr):
+        for m, stop in running:
+            if m is mgr:
+                stop.set()
+        mgr.stop()
+
+    threading.Thread(target=kubelet, daemon=True).start()
+    try:
+        a, rec_a, started_a = replica(leader_election=True)
+        _wait_for("the first leader", lambda: not started_a.is_alive(), OPERATOR_WAIT_S)
+        holder = lease("gpu-operator-leader")["spec"]["holderIdentity"]
+        _wait_for("the leader's READY", lambda: rec_a.passes_total and _cr_status(raw).get("state") == "ready",
+                  OPERATOR_WAIT_S)
+        b, rec_b, started_b = replica(leader_election=True)
+        time.sleep(1.0)
+        if not started_b.is_alive() or rec_b.passes_total:
+            raise RuntimeError("the second manager ran while the first held the lease")
+        t0 = time.perf_counter()
+        halt_replica(a)
+        _wait_for("the candidate's lease", lambda: not started_b.is_alive(), OPERATOR_WAIT_S)
+        nums["leader_takeover_s"] = time.perf_counter() - t0
+        new = lease("gpu-operator-leader")["spec"]["holderIdentity"]
+        _wait_for("the new leader's READY pass", lambda: rec_b.passes_total and _cr_status(raw).get(
+            "state") == "ready", OPERATOR_WAIT_S)
+        nums["leader_ready_s"] = time.perf_counter() - t0
+        if new == holder:
+            raise RuntimeError(f"gpu-operator-leader still names {holder}")
+        halt_replica(b)
+
+        os.environ.update(GPU_SHARDS="2", GPU_SHARD_MAX="1", GPU_SHARD_LEASE_S=str(SHARD_LEASE_S))
+        a, rec_a, started_a = replica()
+        _wait_for("replica A's start", lambda: not started_a.is_alive(), OPERATOR_WAIT_S)
+        b, rec_b, started_b = replica()
+        _wait_for("replica B's start", lambda: not started_b.is_alive(), OPERATOR_WAIT_S)
+        sm_a, sm_b = a.shard_state, b.shard_state
+        holders = {i: (lease(f"{shard.SHARD_LEASE_PREFIX}{i}") or {}).get("spec", {}).get("holderIdentity")
+                   for i in (0, 1)}
+        if (sm_a.owned(), sm_b.owned()) != ({0}, {1}) or holders != {0: sm_a.identity, 1: sm_b.identity}:
+            raise RuntimeError(f"the replicas own {sm_a.owned()} and {sm_b.owned()}; the leases name {holders}")
+        _wait_for("the sharded READY", lambda: rec_a.passes_total and _cr_status(raw).get("state") == "ready",
+                  OPERATOR_WAIT_S)
+        passes = rec_b.passes_total
+        t0 = time.perf_counter()
+        a.shard_lease_manager = None  # a crash: the lease is not released
+        sm_a.stop(release=False)
+        halt_replica(a)
+        _wait_for("the survivor's shard 0", lambda: sm_b.owned() == {0, 1}, OPERATOR_WAIT_S)
+        nums["shard_takeover_s"] = time.perf_counter() - t0
+        if not sm_b.confirm_full_pass_owner():
+            raise RuntimeError("the survivor could not confirm shard 0 live")
+        _wait_for("the survivor's full pass", lambda: rec_b.passes_total > passes and _cr_status(raw).get(
+            "state") == "ready", OPERATOR_WAIT_S)
+        nums["shard_ready_s"] = time.perf_counter() - t0
+        log(f"failover: {len(nodes)} nodes; the leader stopped, gpu-operator-leader ({LEADER_LEASE_S} s) taken "
+            f"in {nums['leader_takeover_s']:.2f} s, READY pass at {nums['leader_ready_s']:.2f} s; GPU_SHARDS=2 "
+            f"split {shard.SHARD_LEASE_PREFIX}0/1, the shard-0 holder stopped without a release, the survivor "
+            f"owned both in {nums['shard_takeover_s']:.2f} s (lease {SHARD_LEASE_S} s), confirmed shard 0 live "
+            f"and ran its full pass, READY at {nums['shard_ready_s']:.2f} s")
+        return nums
+    finally:
+        halt.set()
+        for mgr, stop in running:
+            stop.set()
+            mgr.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_operator() -> None:
+    """The operator process on the card's node (phase 15). Part A: the
+    shipped ``main --kubesim --once`` as subprocesses
+    (``run_operator_process``). Part B: the card's node, one host of
+    ``CARD_SLICE``, in a ``FSM_FLEET_NODES``-node fleet on one KubeSim with
+    the device plugin over the real cards; the whole operator in process
+    (``run_operator_in_process``). Part C: leader and shard failover on a
+    second KubeSim of ``FAILOVER_SLICES`` 4-host slices (``run_failover``)."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.kube import kubesim, testing
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.obs import flight
+    from tpu_operator_torch.workloads.topology import device_generation
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    n = torch.cuda.device_count()
+    chips = gpuinfo.chip_summary()
+    card_variant = device_generation(torch.cuda.get_device_name(0))
+    if card_variant is None or len(chips) != n:
+        raise RuntimeError(f"{torch.cuda.get_device_name(0)!r} is no H100 variant, or the chip table {chips}")
+    ns = consts.DEFAULT_NAMESPACE
+    faulthandler.dump_traceback_later(OPERATOR_TIMEOUT_S, exit=True)
+    flight_dir = flight.RECORDER.dir
+    with tempfile.TemporaryDirectory(prefix="cs15-") as tmp:
+        flight.RECORDER.dir = os.path.join(tmp, "flight")
+        servers, kubelet, plugin_server = [], None, None
+        try:
+            nums = run_operator_process(n)
+            labels = tfd.gather_features({"metadata": {"name": OPERANDS_NODE, "labels": {}}},
+                                         dev_root="/dev", driver_root="/", env={}, chips=chips)
+            check_features(labels, n)
+            servers.append(kubesim.KubeSimServer(port=0).start())
+            raw = kubesim.make_client(servers[0].port)
+            testing.seed_cluster(raw, ns, node_names=())
+            _, nodes, _, _ = fsm_fleet(raw, servers[0].sim, OPERANDS_NODE, labels, card_variant)
+            kubelet, plugin_server, capacity = card_device_plugin(servers[0].port, tmp, chips)
+            capacity(None)
+            nums.update(run_operator_in_process(servers[0].port, ns, servers[0].sim, OPERANDS_NODE, nodes, capacity))
+            plugin_server.stop()
+            kubelet.stop()
+            kubelet = plugin_server = None
+            servers.pop().stop()
+
+            servers.append(kubesim.KubeSimServer(port=0).start())
+            raw = kubesim.make_client(servers[0].port)
+            testing.seed_cluster(raw, ns, node_names=())
+            _, nodes, _, _ = fsm_fleet(raw, servers[0].sim, OPERANDS_NODE, labels, card_variant, FAILOVER_SLICES, 0, 0)
+            servers[0].sim.set_node_chips(OPERANDS_NODE, n)
+            nums.update(run_failover(servers[0].port, ns, nodes))
+        finally:
+            if plugin_server is not None:
+                plugin_server.stop()
+            if kubelet is not None:
+                kubelet.stop()
+            for server in servers:
+                server.stop()
+            flight.RECORDER.dir = flight_dir
+            faulthandler.cancel_dump_traceback_later()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the operator process launched kernels of the package: {launched}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"operator process on: {smi.stdout.strip() or smi.stderr.strip()}; {json.dumps(nums)}; "
+        f"no kernel of the package launched; phase 15 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -4278,6 +4638,7 @@ def main() -> int:
     phase_state_machine()
     phase_node_fsms()
     phase_reconcilers()
+    phase_operator()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,7 +9,8 @@ for the reference's directory; and no file names the TPU's resource, its
 libtpu images or its validator. Every DaemonSet's name and ``app`` are a
 value of ``consts.OPERAND_APPS``, its node selector the label bus, and it
 tolerates ``nvidia.com/gpu``. The wheel carries the YAML
-(``pyproject.toml``'s package data).
+(``pyproject.toml``'s package data), and every ``gpu-*`` command the assets
+run is a script of the package.
 
 Rollout: ``apply_override`` on one CR through
 ``convert.clusterpolicy_from_reference`` pins the same effective version
@@ -100,6 +101,44 @@ def test_the_wheel_carries_the_assets_and_the_validator_script():
         text = f.read()
     assert 'gpu-validator = "tpu_operator_torch.validator.main:main"' in text
     assert re.search(r'tpu_operator_torch = \[[^\]]*"assets/\*/\*\.yaml"', text)
+
+
+def _commands(tree):
+    """Every container ``command`` list in a parsed YAML document."""
+    if isinstance(tree, dict):
+        if isinstance(tree.get("command"), list):
+            yield tree["command"]
+        for value in tree.values():
+            yield from _commands(value)
+    elif isinstance(tree, list):
+        for value in tree:
+            yield from _commands(value)
+
+
+def test_every_asset_command_is_a_script_of_the_package():
+    """Each ``command: [gpu-...]`` in the port's assets names a script of
+    ``pyproject.toml`` whose entry point resolves in the port's package:
+    a DaemonSet whose command no module provides would crash-loop."""
+    import importlib
+    import tomllib
+
+    import yaml
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    seen = set()
+    for root, _, names in os.walk(ASSETS):
+        for name in names:
+            if name.endswith(".yaml"):
+                with open(os.path.join(root, name)) as f:
+                    for doc in yaml.safe_load_all(f):
+                        seen.update(cmd[0] for cmd in _commands(doc) if str(cmd[0]).startswith("gpu-"))
+    assert {"gpu-maintenance-handler", "gpu-device-plugin", "gpu-driver-manager"} <= seen
+    for command in sorted(seen):
+        assert command in scripts, command
+        module, func = scripts[command].split(":")
+        assert module.startswith("tpu_operator_torch."), (command, module)
+        assert callable(getattr(importlib.import_module(module), func)), command
 
 
 def test_default_assets_dir_is_the_package_s_own(monkeypatch, tmp_path):

@@ -675,7 +675,8 @@ def test_transport_free_path_needs_no_grpc_protobuf_or_yaml(dev_roots):
     it. The node FSMs (the upgrade, remediation and the re-partition roll)
     and the reconcilers (the ClusterPolicy reconciler, the delta reconciler
     and event router, the whole rollout module and the upgrade reconciler)
-    import too, and a node carrying each of the upgrade FSM's renamed labels
+    import too, and so does the operator process (the manager, sharding,
+    ``main`` and the maintenance handler), and a node carrying each of the upgrade FSM's renamed labels
     and annotations crosses ``convert`` to the reference's names and back."""
     code = f"""
 import sys
@@ -702,7 +703,8 @@ for mod in ("tpu_operator_torch", "tpu_operator_torch.workloads.topology",
             "tpu_operator_torch.controllers.remediation", "tpu_operator_torch.controllers.repartition",
             "tpu_operator_torch.sliceman.slice_manager", "tpu_operator_torch.kube.disruption",
             "tpu_operator_torch.controllers.clusterpolicy_controller", "tpu_operator_torch.controllers.delta",
-            "tpu_operator_torch.upgrade.upgrade_controller"):
+            "tpu_operator_torch.upgrade.upgrade_controller", "tpu_operator_torch.manager",
+            "tpu_operator_torch.shard", "tpu_operator_torch.main", "tpu_operator_torch.operands.maintenance"):
     importlib.import_module(mod)
 from tpu_operator_torch import consts, convert
 renamed = [consts.UPGRADE_SKIP_LABEL, consts.UPGRADE_SKIP_DRAIN_LABEL] + list(convert.ANNOTATION_KEYS.values())

@@ -26,7 +26,10 @@ metrics exporter (``exporter/``) and the driver, driver-manager, vfio and
 VM operands (``operands/``), nor the control plane's foundation: the
 ClusterPolicy types (``api/v1/``), its schema validation, CRD generation
 and the ``gpuop-cfg`` CLI (``cfg/``), and the client stack, KubeSim and
-the simulated kubelet (``kube/``). grpc, protobuf, PyYAML and
+the simulated kubelet (``kube/``), nor the controllers (``controllers/``,
+``upgrade/``) and the operator process that runs them off a watch-fed
+workqueue (``manager.py``, ``shard.py``, ``main.py``, the ``gpu-operator``
+script). grpc, protobuf, PyYAML and
 ``prometheus_client`` are imported only inside the functions that need
 them, and grpc by ``kube/kubelet_sim.py``, which nothing imports with the
 package.

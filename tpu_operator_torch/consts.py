@@ -43,6 +43,9 @@ GENERATION_LABEL = f"{GROUP}/tpu.generation"
 SHARD_LABEL = f"{GROUP}/shard"
 # a node inside an announced host-maintenance window (:118)
 MAINTENANCE_STATE_LABEL = f"{GROUP}/maintenance"
+# whether the node was already cordoned when the window began, so the
+# all-clear restores it (:121; names no accelerator, so it stays)
+MAINTENANCE_INITIAL_STATE_ANNOTATION = f"{GROUP}/maintenance-initial-unschedulable"
 # an operand's deploy label = its DaemonSet's nodeSelector (:68)
 DEPLOY_LABEL_PREFIX = f"{GROUP}/tpu.deploy."
 COMPONENT_DRIVER = "driver"  # the reference's COMPONENT_LIBTPU

@@ -1,5 +1,6 @@
 """Shared test and dev doubles: GPU and CPU nodes, and the simulated
-fleet's kubelet and node agents.
+fleet's kubelet and node agents, and ``running_operator``, the operator
+process as ``main()`` wires it, for the wire tests and the card's check.
 
 The port's copy of ``tpu_operator/kube/testing.py``. A GPU node
 (``make_gpu_node``) carries the labels the port's feature discovery
@@ -24,6 +25,7 @@ own chip. The driver DaemonSet is the one whose ``app`` starts with
 from __future__ import annotations
 
 import weakref
+from contextlib import contextmanager
 
 from tpu_operator_torch import consts
 from tpu_operator_torch.kube.client import Client, ConflictError, Obj
@@ -813,3 +815,67 @@ def edit_clusterpolicy(client, fn, name="cluster-policy"):
     mutate_with_retry(
         client, consts.API_VERSION, consts.CLUSTER_POLICY_KIND, name, mutate=mutate
     )
+
+
+def wait_until(pred, timeout_s: float = 60.0, poll_s: float = 0.1) -> bool:
+    """Poll ``pred`` until true; False once ``timeout_s`` passed."""
+    import time
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(poll_s)
+    return False
+
+
+@contextmanager
+def running_operator(client, namespace: str, node_names, extra_threads=(), **manager_kw):
+    """The full Manager wired exactly as ``main()`` ships it (both
+    reconcilers, watch-fed queue), a faithful-OnDelete kubelet per node,
+    and an upgrade-reconciler pump (production re-queues every 120 s,
+    ``upgrade_controller.REQUEUE_S``; the same level-triggered loop at test
+    cadence). ``extra_threads`` are ``fn(halt)`` loops joined to the same
+    halt event; ``manager_kw`` go to ``build_manager`` (metrics and probe
+    ports default to 0, none). Yields the manager; everything started
+    here stops on exit."""
+    import threading
+
+    from tpu_operator_torch.kube.client import NotFoundError
+    from tpu_operator_torch.kube.rest import TransientAPIError
+    from tpu_operator_torch.main import UPGRADE_KEY, build_manager, wire_event_sources
+
+    manager_kw.setdefault("metrics_port", 0)
+    manager_kw.setdefault("probe_port", 0)
+    mgr, _, _ = build_manager(client, namespace, **manager_kw)
+    stop = threading.Event()
+    halt = threading.Event()
+    threads = []
+    try:
+        wire_event_sources(mgr, client, namespace, stop_event=stop)
+        mgr.start()
+
+        def kubelet():
+            while not halt.is_set():
+                try:
+                    simulate_kubelet_nodes(client, namespace, node_names)
+                except (ConflictError, NotFoundError, TransientAPIError, OSError):
+                    pass  # races with the reconciler/FSM; retried next pass
+                halt.wait(0.15)
+
+        def pump():
+            while not halt.is_set():
+                mgr.enqueue(UPGRADE_KEY)
+                halt.wait(0.25)
+
+        for fn, args in [(kubelet, ()), (pump, ())] + [(fn, (halt,)) for fn in extra_threads]:
+            t = threading.Thread(target=fn, args=args, daemon=True)
+            t.start()
+            threads.append(t)
+        yield mgr
+    finally:
+        halt.set()
+        stop.set()
+        mgr.stop()
+        for t in threads:
+            t.join(timeout=10)
