@@ -296,6 +296,28 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    owns both, confirms shard 0 live and runs its full pass with the CR
    READY; the times and the card's name and power limit are logged; this
    path launches none of K1-K7c;
+16. (after 15, before 4) allocation churn and the chaos soak beside the
+   card's node, under a watchdog of ``CHURN_TIMEOUT_S``. On a KubeSim of
+   ``FLEET_NODES`` nodes, the card's node (the device plugin over the real
+   cards serving it) and synthetic H100 NVL hosts of four NVLink-bridged
+   pairs, the whole operator runs with the kubelet sweep while a
+   ``schedsim`` ``ChurnEngine`` pushes ``CHURN_RATE`` allocations a minute
+   (``CHURN_WORKERS`` workers, gangs of ``CHURN_GANG_HOSTS`` whole hosts at
+   ``CHURN_GANG_FRACTION``) through the plugin admission path, its agent
+   for the card's node over the real servicer (``run_alloc_churn``). At
+   READY the cards of the card's node and of one synthetic host die;
+   remediation turns active; churn goes on ``CHURN_HOLD_S``; the cards
+   recover and the fleet is READY again; the churn lasts at least
+   ``CHURN_WINDOW_S``. Allocations land on the card's node, each naming
+   card ids ``gpuinfo.chip_summary`` lists, by CDI name and UUID, none
+   while its cards are unhealthy; no synthetic host names a device node
+   that exists or asks for a chip table; the drain holds 0 cards and 0
+   pods, with 0 double allocations and 0 partial gangs. Then
+   ``tests/test_chaos_soak.py``'s bad-version soak (``SOAK``) under the
+   port's lock-order watchdog (``run_soak``) rolls back from its canary
+   with every assertion of the reference's test and no lock-order cycle.
+   Rates, latencies, fragmentation and times are logged beside the card's
+   name and power limit; this path launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -310,6 +332,7 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import glob
 import json
@@ -4593,6 +4616,308 @@ def phase_operator() -> None:
         f"no kernel of the package launched; phase 15 {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: allocation churn and the chaos soak beside the card's node
+# ---------------------------------------------------------------------------
+CHURN_TIMEOUT_S = 420  # the phase's watchdog
+CHURN_RATE = 1800.0  # allocations a minute (tests/scripts/alloc_churn.py --rate)
+CHURN_WORKERS = 8
+CHURN_GANG_FRACTION = 0.15
+CHURN_GANG_HOSTS = 2
+CHURN_SAMPLE_K = 64  # hosts a placement samples (the engine's default 16 draws the card's node, one in a thousand, too rarely)
+CHURN_WINDOW_S = 20.0  # the churn's least wall time (the reference's floor is 45 s)
+CHURN_HOLD_S = 8.0  # churn through the active remediation, as the reference's rig does
+CHURN_WAIT_S = 180  # for READY, remediation active and the recovery
+CHURN_VARIANT = "h100-nvl"  # the synthetic hosts: eight H100 NVL cards a host
+CHURN_PRODUCT = "NVIDIA-H100-NVL"
+CHURN_CARDS = {i: {"index": i, "nvlink_domain": i // 2} for i in range(8)}  # four NVLink-bridged pairs
+SOAK = {"nodes": 12, "slice_pairs": 2, "seed": 5, "duration_s": 8.0, "bad_version_roll": True,
+        "settle_timeout_s": 180.0}  # tests/test_chaos_soak.py's bad-version soak
+
+
+class _CardStub:
+    """The admission calls to the card's servicer, in process, each
+    ``Allocate`` recorded: the ids asked for, the CDI names and env the
+    answer gave, and whether the phase had marked the cards unhealthy."""
+
+    def __init__(self, servicer):
+        from tpu_operator_torch.kube.kubelet_sim import InProcessPluginStub
+
+        self._stub = InProcessPluginStub(servicer)
+        self.calls = []
+        self.dead = False
+
+    def GetDevicePluginOptions(self, request, timeout=None):
+        return self._stub.GetDevicePluginOptions(request, timeout)
+
+    def GetPreferredAllocation(self, request, timeout=None):
+        return self._stub.GetPreferredAllocation(request, timeout)
+
+    def Allocate(self, request, timeout=None):
+        resp = self._stub.Allocate(request, timeout)
+        c = resp.container_responses[0]
+        self.calls.append({"ids": list(request.container_requests[0].devicesIDs),
+                           "cdi": [d.name for d in c.cdi_devices], "env": dict(c.envs), "dead": self.dead})
+        return resp
+
+
+def _card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip() or smi.stderr.strip()
+
+
+def _remediation_seen(raw) -> bool:
+    rem = _cr_status(raw).get("remediation") or {}
+    return rem.get("unhealthy", 0) + rem.get("quarantined", 0) >= 1
+
+
+def run_alloc_churn(port: int, ns: str, sim, card: str, fleet: list, servicer, chips: list) -> dict:
+    """Part A of phase 16, the port's copy of ``tests/scripts/alloc_churn.py``:
+    the whole operator (``build_manager`` + ``wire_event_sources``, the
+    kubelet sweep) over the KubeSim at ``port`` with ``fleet`` (the card's
+    node and ``FLEET_NODES - 1`` synthetic H100 NVL hosts), and a
+    ``ChurnEngine`` at the reference's traffic whose agent for the card's
+    node runs over ``servicer``, the device plugin over the real cards.
+    Churn from the start; at READY a card-death wave on the card's node
+    (through its plugin) and one synthetic host (through KubeSim and its
+    plugin); remediation active; churn on for ``CHURN_HOLD_S``; recovery
+    and READY again; the churn lasts at least ``CHURN_WINDOW_S``."""
+    import threading
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.kube import kubesim, testing
+    from tpu_operator_torch.kube.client import ConflictError, NotFoundError
+    from tpu_operator_torch.kube.rest import TransientAPIError
+    from tpu_operator_torch.main import CP_KEY, build_manager, wire_event_sources
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.schedsim.engine import ChurnEngine
+
+    raw = kubesim.make_client(port)
+    testing.edit_clusterpolicy(raw, lambda cp: cp["spec"].update(remediation={
+        "enabled": True, "maxAttempts": 3, "backoffSeconds": 0, "maxUnavailable": "50%",
+        "systemicThreshold": "50%"}))
+    roots = []
+    real_summary = gpuinfo.chip_summary
+
+    def summary(*args, **kw):
+        roots.append(args[0] if args else kw.get("dev_root", "/dev"))
+        return real_summary(*args, **kw)
+
+    gpuinfo.chip_summary = summary
+    nums = {}
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, gpuinfo, "chip_summary", real_summary)
+        mgr, _, _ = build_manager(kubesim.make_client(port), ns, metrics_port=0, probe_port=0)
+        stop = threading.Event()
+        wire_event_sources(mgr, kubesim.make_client(port), ns, stop_event=stop)
+        mgr.start()
+        stack.callback(mgr.stop)
+        stack.callback(stop.set)
+        halt = threading.Event()
+        kube = kubesim.make_client(port)
+
+        def kubelet():
+            idle = 0.05
+            while not halt.is_set():
+                before = sim.request_counts.get("POST", 0) + sim.request_counts.get("PUT", 0)
+                try:
+                    testing.simulate_kubelet_nodes(kube, ns, fleet, halt_event=halt)
+                except (ConflictError, NotFoundError, TransientAPIError, OSError):
+                    pass  # races with the operator; the next sweep retries
+                wrote = sim.request_counts.get("POST", 0) + sim.request_counts.get("PUT", 0) > before
+                idle = 0.05 if wrote else min(idle * 2, 1.0)
+                halt.wait(idle)
+
+        sweeper = threading.Thread(target=kubelet, daemon=True)
+        sweeper.start()
+        stack.callback(sweeper.join, 30)
+        stack.callback(halt.set)
+        mgr.enqueue(CP_KEY)
+
+        churn = kubesim.make_client(port)
+        churn.GET_RETRY_BACKOFF_S = 0.05
+        engine = ChurnEngine(churn, fleet, workers=CHURN_WORKERS, rate_per_min=CHURN_RATE,
+                             gang_fraction=CHURN_GANG_FRACTION, gang_hosts=CHURN_GANG_HOSTS, sample_k=CHURN_SAMPLE_K,
+                             seed=11, generation=CHURN_VARIANT, cards=CHURN_CARDS)
+        agent = engine.host_agent(card, servicer)
+        stub = agent.stub = _CardStub(servicer)
+        engine.agents[card] = agent
+        synthetic = [a for name, a in engine.agents.items() if name != card]
+        opened = [c["path"] for a in synthetic for c in a.servicer.discover() if os.path.exists(os.path.dirname(c["path"]))]
+        if opened:
+            raise RuntimeError(f"synthetic hosts name device nodes that exist: {opened[:4]}")
+        mgr.register_debug_vars("allocation", engine.stats)
+        t0 = time.perf_counter()
+        engine.start()
+        stack.callback(engine.stop)
+
+        _wait_for("READY under churn", lambda: _cr_status(raw).get("state") == "ready", CHURN_WAIT_S)
+        nums["ready_before_s"] = time.perf_counter() - t0
+        victim = fleet[1] if fleet[0] == card else fleet[0]
+        engine.set_node_health(card, False)  # through the card's plugin: its kubelet writes 0 allocatable
+        stub.dead = True
+        sim.kill_node_chips(victim)
+        engine.set_node_health(victim, False)
+        t_wave = time.perf_counter()
+        _wait_for("remediation active", lambda: _remediation_seen(raw), CHURN_WAIT_S)
+        nums["remediation_active_s"] = time.perf_counter() - t_wave
+        time.sleep(CHURN_HOLD_S)
+        stub.dead = False
+        engine.set_node_health(card, True)
+        sim.restore_node_chips(victim)
+        engine.set_node_health(victim, True)
+        t_restore = time.perf_counter()
+        _wait_for("READY again after the wave", lambda: _cr_status(raw).get("state") == "ready" and not (
+            _cr_status(raw).get("remediation") or {}).get("quarantined", 0), CHURN_WAIT_S)
+        nums["ready_after_s"] = time.perf_counter() - t_restore
+        while time.perf_counter() - t0 < CHURN_WINDOW_S:
+            time.sleep(0.5)
+        engine.stop()
+        nums["churn_wall_s"] = time.perf_counter() - t0
+    verdict = engine.drain_check()
+    stats = engine.stats()
+    if verdict != {"chips_held": 0, "pods_holding": 0, "double_allocations": 0, "invariant_violations": 0}:
+        raise RuntimeError(f"the churn's drain: {verdict}")
+    if stats["partial_gang_violations"] or stats["errors_total"]:
+        raise RuntimeError(f"partial gangs {stats['partial_gang_violations']}, errors {stats['errors_total']}")
+    bad_roots = sorted({r for r in roots if r != servicer.dev_root})
+    if bad_roots:
+        raise RuntimeError(f"a host other than the card's asked for a chip table under {bad_roots}")
+    minors = {str(c["index"]): c for c in chips}
+    if not stub.calls:
+        raise RuntimeError(f"no allocation landed on {card} in {stats['allocations_total']}")
+    for call in stub.calls:
+        want_cdi = [f"{consts.CDI_KIND}={i}" for i in call["ids"]]
+        want_env = ",".join(minors[i]["uuid"] for i in call["ids"]) if set(call["ids"]) <= set(minors) else None
+        if (call["dead"] or not set(call["ids"]) <= set(minors) or call["cdi"] != want_cdi
+                or call["env"].get("NVIDIA_VISIBLE_DEVICES") != want_env):
+            raise RuntimeError(f"an allocation on {card}: {call} (the card's minors {sorted(minors)})")
+    nums.update({
+        "allocations": stats["allocations_total"], "alloc_per_min": stats["alloc_per_min"],
+        "alloc_p50_ms": stats["latency_ms"]["p50_ms"], "alloc_p99_ms": stats["latency_ms"]["p99_ms"],
+        "gangs_admitted": stats["gangs"]["admitted"], "failures": stats["failures_total"],
+        "fragmentation_pct": stats["fragmentation_pct"], "fragmentation_max_pct": stats["fragmentation_max_pct"],
+        "card_allocations": len(stub.calls), "card_ids": sorted({i for c in stub.calls for i in c["ids"]}),
+    })
+    log(f"alloc churn on {_card_line()}: {len(fleet)} nodes, {stats['allocations_total']} allocations at {stats['alloc_per_min']}/min "
+        f"(target {CHURN_RATE:.0f}), p50 {nums['alloc_p50_ms']} ms p99 {nums['alloc_p99_ms']} ms, "
+        f"{nums['gangs_admitted']} gangs, fragmentation last {nums['fragmentation_pct']}% max "
+        f"{nums['fragmentation_max_pct']}%; READY {nums['ready_before_s']:.2f} s under churn, remediation active "
+        f"{nums['remediation_active_s']:.2f} s after the wave, READY {nums['ready_after_s']:.2f} s after recovery; "
+        f"{len(stub.calls)} allocation(s) on {card} (cards {nums['card_ids']}), none while its cards were unhealthy; "
+        f"drain 0 held, 0 double, 0 partial gangs; no synthetic host asked for a chip table")
+    return nums
+
+
+def run_soak() -> dict:
+    """Part B of phase 16: ``tests/test_chaos_soak.py``'s bad-version soak
+    (``SOAK``) under the port's lock-order watchdog, with every assertion
+    of the reference's test."""
+    from tpu_operator_torch.analysis import lockwatch
+    from tpu_operator_torch.chaos.soak import SoakRunner
+
+    lockwatch.reset()
+    with lockwatch.watching(strict=False):
+        report = SoakRunner(**SOAK).run()
+        watched = lockwatch.stats()
+    lockwatch.reset()
+    brief = {k: v for k, v in report.items() if k not in ("trace", "alloc")}
+    record = report.get("rollout_record") or {}
+    kinds = {e["kind"] for e in report["trace"]["events"]}
+    dumps = [p for p in report["flight_dumps"] if "rollout-rollback" in p]
+    if not (report["converged_before_chaos"] and report["events_executed"] == len(report["trace"]["events"])
+            and {"bad_version", "driver_roll"} <= kinds and report["settled"] and report["violations"] == []
+            and report["ok"] and record.get("state") == "rolled-back" and record.get("evidence")
+            and report["rollout"]["rollbacks_total"] >= 1 and len(report["rollout_nodes_admitted"]) <= 2
+            and dumps and watched["cycles"] == 0):
+        raise RuntimeError(f"the bad-version soak: {brief}; lockwatch {watched}")
+    with open(dumps[0]) as f:
+        decided = json.load(f)["ts"] - report["timings"]["driver_roll_at"]
+    nums = {**{f"soak_{k}": v for k, v in report["timings"].items() if k != "driver_roll_at"},
+            "soak_rollback_after_roll_s": decided, "soak_events": report["events_executed"],
+            "soak_admitted": report["rollout_nodes_admitted"],
+            "soak_rolled_back": sorted(report["rollout_nodes_rolled_back"]),
+            "soak_allocations": report["alloc"]["allocations_total"],
+            "lockwatch_blocking": watched["blocking_events"], "lockwatch_cycles": watched["cycles"]}
+    log(f"chaos soak on {_card_line()}: converged {nums['soak_converge_s']:.2f} s, {nums['soak_events']} events in "
+        f"{nums['soak_chaos_s']:.2f} s, rollback decided {decided:.2f} s after the driver roll, settled "
+        f"{nums['soak_settle_s']:.2f} s after the chaos; admitted by the roll {nums['soak_admitted']}, rolled back "
+        f"after coming up on the bad driver {report['rollout_nodes_rolled_back']}; {nums['soak_allocations']} "
+        f"allocations; lockwatch {watched['cycles']} cycles, {watched['blocking_events']} held across blocking, "
+        f"{watched['locks_created']} locks")
+    return nums
+
+
+def phase_churn() -> None:
+    """Allocation churn and the chaos soak beside the card's node (phase
+    16). Part A: ``run_alloc_churn`` on a KubeSim of ``FLEET_NODES`` nodes,
+    the card's (its device plugin over the real cards) and synthetic H100
+    NVL hosts. Part B: ``run_soak``."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.kube import kubesim, testing
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.obs import flight
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    n = torch.cuda.device_count()
+    chips = gpuinfo.chip_summary()
+    if len(chips) != n:
+        raise RuntimeError(f"the chip table {chips} holds not the {n} cards torch sees")
+    ns = consts.DEFAULT_NAMESPACE
+    faulthandler.dump_traceback_later(CHURN_TIMEOUT_S, exit=True)
+    flight_dir = flight.RECORDER.dir
+    namespace_env = os.environ.get(consts.OPERATOR_NAMESPACE_ENV)
+    os.environ[consts.OPERATOR_NAMESPACE_ENV] = ns
+    with tempfile.TemporaryDirectory(prefix="cs16-") as tmp:
+        flight.RECORDER.dir = os.path.join(tmp, "flight")
+        flight.RECORDER.clear()  # no dump of an earlier phase rate-limits this phase's
+        server, kubelet, plugin_server = None, None, None
+        try:
+            labels = tfd.gather_features({"metadata": {"name": OPERANDS_NODE, "labels": {}}},
+                                         dev_root="/dev", driver_root="/", env={}, chips=chips)
+            check_features(labels, n)
+            server = kubesim.KubeSimServer(port=0).start()
+            raw = kubesim.make_client(server.port)
+            testing.seed_cluster(raw, ns, node_names=())
+            raw.create({"apiVersion": "v1", "kind": "Node", "metadata": {
+                "name": OPERANDS_NODE, "labels": {**labels, "kubernetes.io/hostname": OPERANDS_NODE}}})
+            fleet = [OPERANDS_NODE] + server.sim.add_nodes(
+                FLEET_NODES - 1, name_prefix="fleet", template=testing.make_gpu_node(
+                    "x", variant=CHURN_VARIANT, product=CHURN_PRODUCT))
+            kubelet, plugin_server, capacity = card_device_plugin(server.port, tmp, chips)
+            capacity(None)
+            nums = run_alloc_churn(server.port, ns, server.sim, OPERANDS_NODE, fleet, plugin_server.servicer, chips)
+            plugin_server.stop()
+            kubelet.stop()
+            kubelet = plugin_server = None
+            server.stop()
+            server = None
+            nums.update(run_soak())
+        finally:
+            if plugin_server is not None:
+                plugin_server.stop()
+            if kubelet is not None:
+                kubelet.stop()
+            if server is not None:
+                server.stop()
+            flight.RECORDER.dir = flight_dir
+            if namespace_env is None:
+                os.environ.pop(consts.OPERATOR_NAMESPACE_ENV, None)
+            else:
+                os.environ[consts.OPERATOR_NAMESPACE_ENV] = namespace_env
+            faulthandler.cancel_dump_traceback_later()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the churn and the soak launched kernels of the package: {launched}")
+    log(f"churn and soak on: {_card_line()}; {json.dumps(nums)}; "
+        f"no kernel of the package launched; phase 16 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -4639,6 +4964,7 @@ def main() -> int:
     phase_node_fsms()
     phase_reconcilers()
     phase_operator()
+    phase_churn()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

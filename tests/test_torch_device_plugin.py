@@ -677,7 +677,14 @@ def test_transport_free_path_needs_no_grpc_protobuf_or_yaml(dev_roots):
     and event router, the whole rollout module and the upgrade reconciler)
     import too, and so does the operator process (the manager, sharding,
     ``main`` and the maintenance handler), and a node carrying each of the upgrade FSM's renamed labels
-    and annotations crosses ``convert`` to the reference's names and back."""
+    and annotations crosses ``convert`` to the reference's names and back.
+    So do the allocation ledger and the gang coordinator
+    (``schedsim.registry``, ``schedsim.gang``), the chaos schedule and the
+    soak module (``chaos.schedule``, ``chaos.soak``) and the lock-order
+    watchdog (``analysis.lockwatch``). ``schedsim.engine`` is the one module
+    of that slice left out: it needs ``kube.kubelet_sim``, which imports grpc
+    at module level, and ``SoakRunner.run`` imports it when a soak runs
+    with churn."""
     code = f"""
 import sys
 for name in ("grpc", "google", "google.protobuf", "yaml"):
@@ -704,7 +711,11 @@ for mod in ("tpu_operator_torch", "tpu_operator_torch.workloads.topology",
             "tpu_operator_torch.sliceman.slice_manager", "tpu_operator_torch.kube.disruption",
             "tpu_operator_torch.controllers.clusterpolicy_controller", "tpu_operator_torch.controllers.delta",
             "tpu_operator_torch.upgrade.upgrade_controller", "tpu_operator_torch.manager",
-            "tpu_operator_torch.shard", "tpu_operator_torch.main", "tpu_operator_torch.operands.maintenance"):
+            "tpu_operator_torch.shard", "tpu_operator_torch.main", "tpu_operator_torch.operands.maintenance",
+            "tpu_operator_torch.schedsim", "tpu_operator_torch.schedsim.registry",
+            "tpu_operator_torch.schedsim.gang", "tpu_operator_torch.chaos", "tpu_operator_torch.chaos.schedule",
+            "tpu_operator_torch.chaos.soak", "tpu_operator_torch.analysis",
+            "tpu_operator_torch.analysis.lockwatch"):
     importlib.import_module(mod)
 from tpu_operator_torch import consts, convert
 renamed = [consts.UPGRADE_SKIP_LABEL, consts.UPGRADE_SKIP_DRAIN_LABEL] + list(convert.ANNOTATION_KEYS.values())

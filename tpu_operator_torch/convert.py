@@ -36,6 +36,13 @@ DaemonSet (``tpu-libtpu-daemonset-v5e`` is ``gpu-driver-daemonset-h100-sxm``).
 Without the table they cross unchanged. The rollout ledger on a
 ClusterPolicy (``consts.ROLLOUT_STATE_ANNOTATION``) crosses with its
 driver kind renamed (``libtpu`` is ``driver``).
+
+A chaos soak's replayable trace (``chaos/schedule.py``) crosses through
+``chaos_trace_from_reference`` and back: the driver roll's event kind
+(``CHAOS_KINDS``), the re-partition profile (``CHAOS_PROFILES``, the
+reference's TPU layout to the card slice manager's) and the bad version
+(``CHAOS_VERSIONS``, the reference soak's to the port soak's); node names,
+times and every other argument stay as they are.
 """
 
 from __future__ import annotations
@@ -459,3 +466,39 @@ def warm_journal_to_reference(payload: Dict[str, Any]) -> Dict[str, Any]:
     """The port's warm journal as the reference's (the inverse of
     ``warm_journal_from_reference``)."""
     return _journal(payload, False)
+
+
+# a chaos trace's names: the driver roll's kind, the soak's re-partition
+# profile and its bad version (chaos/soak.py REPARTITION_PROFILE, BAD_VERSION)
+CHAOS_KINDS = {"libtpu_roll": "driver_roll"}
+CHAOS_PROFILES = {"balanced-2x2": "all-1x2"}
+CHAOS_VERSIONS = {"2025.9.9-bad": "550.163.01"}
+
+
+def _chaos_trace(doc: Dict[str, Any], forward: bool) -> Dict[str, Any]:
+    kinds = _table(CHAOS_KINDS, forward)
+    profiles = _table(CHAOS_PROFILES, forward)
+    versions = _table(CHAOS_VERSIONS, forward)
+    out = copy.deepcopy(doc)
+    for ev in out.get("events") or []:
+        ev["kind"] = kinds.get(ev["kind"], ev["kind"])
+        args = ev.get("args") or {}
+        if "profile" in args:
+            args["profile"] = profiles.get(args["profile"], args["profile"])
+        if "version" in args:
+            args["version"] = versions.get(args["version"], args["version"])
+    return out
+
+
+def chaos_trace_from_reference(doc: Dict[str, Any]) -> Dict[str, Any]:
+    """A chaos trace the reference's ``ChaosSchedule.trace()`` wrote as the
+    port's: event kinds through ``CHAOS_KINDS``, ``profile`` arguments
+    through ``CHAOS_PROFILES`` and ``version`` arguments through
+    ``CHAOS_VERSIONS`` (anything outside the tables unchanged)."""
+    return _chaos_trace(doc, True)
+
+
+def chaos_trace_to_reference(doc: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's chaos trace as the reference's (the inverse of
+    ``chaos_trace_from_reference``)."""
+    return _chaos_trace(doc, False)
