@@ -318,6 +318,18 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    with every assertion of the reference's test and no lock-order cycle.
    Rates, latencies, fragmentation and times are logged beside the card's
    name and power limit; this path launches none of K1-K7c;
+17. (after 16, before 4) the static analyser and the two e2e drivers, under
+   a watchdog of ``LINT_E2E_TIMEOUT_S``. ``python -m
+   tpu_operator_torch.analysis --repo-root <the script's tree>`` reports 0
+   findings with rc 0 twice, byte-identical, and the scan is timed in
+   process; ``SEEDED_GUARDED_BY`` in a temporary root with its own
+   ``[tool.gpu_analysis]`` section gives rc 1 and its one finding. ``python
+   -m tpu_operator_torch.e2e.http_e2e`` (KubeSim over HTTP, the production
+   ``RestClient``, the ``gpu-maintenance-handler`` window among its steps)
+   exits 0 with ``HTTP-E2E PASSED``; ``e2e.fake_e2e.main()`` returns 0 with
+   its four parallelism probes on the cards over NCCL, each ``*-ready``
+   file ok over every card. The times are logged beside the card's name
+   and power limit; this path launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -1691,7 +1703,7 @@ def phase_device_stack() -> None:
             log(f"kubelet: the port's KubeletDeviceManager wrote capacity {n} {kubelet_ms:.1f} ms "
                 f"after the plugin registered")
         else:
-            node = node_client.get("v1", "Node", OPERANDS_NODE)
+            node = node_client.get("v1", "Node", OPERANDS_NODE, copy=True)
             node["status"] = {
                 "capacity": {consts.GPU_RESOURCE: str(len(advert))},
                 "allocatable": {consts.GPU_RESOURCE: str(sum(h == "Healthy" for h in advert.values()))},
@@ -1769,7 +1781,7 @@ def check_slice_manager(tmp, chips, n) -> None:
     cards = {c["index"]: c for c in chips}
     log(f"slice manager: node labels from feature discovery {json.dumps(labels)}")
     for name, shape in {**profiles, "bad": bad}.items():
-        node = store.get("v1", "Node", OPERANDS_NODE)
+        node = store.get("v1", "Node", OPERANDS_NODE, copy=True)
         node["metadata"]["labels"][consts.SLICE_CONFIG_LABEL] = name
         store.update(node)
         t0 = time.perf_counter()
@@ -4918,6 +4930,147 @@ def phase_churn() -> None:
         f"no kernel of the package launched; phase 16 {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the static analyser and the two e2e drivers on the card's machine
+# ---------------------------------------------------------------------------
+LINT_E2E_TIMEOUT_S = 400  # the phase's watchdog
+E2E_TIMEOUT_S = 300  # for the HTTP driver's subprocess, as its CPU test allows
+SEEDED_GUARDED_BY = """\
+import threading
+
+
+class C:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._items = []
+
+    def add(self, x):
+        with self._lock:
+            self._items.append(x)
+
+    def bad(self, x):
+        self._items.append(x)
+"""  # tests/test_analysis.py's guarded-by fixture: one finding, at line 14
+
+
+def _lint(root: str, cwd: str) -> tuple:
+    """``python -m tpu_operator_torch.analysis --repo-root root``:
+    (rc, stdout, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_operator_torch.analysis", "--repo-root", root],
+                          capture_output=True, text=True, timeout=300, cwd=cwd)
+    return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
+def check_lint(root: str) -> dict:
+    """The port's analyser over the tree the script runs from: 0 findings
+    and rc 0 twice, byte-identical; the scan alone timed in process; a
+    seeded guarded-by violation in a temporary root with its own
+    ``[tool.gpu_analysis]`` section gives rc 1 and names it."""
+    from tpu_operator_torch.analysis.config import load_config
+    from tpu_operator_torch.analysis.engine import run_analysis
+
+    runs = [_lint(root, root) for _ in range(2)]
+    for rc, out, _ in runs:
+        if rc != 0 or "0 finding(s)" not in out:
+            raise RuntimeError(f"the port's lint over its tree: rc={rc}\n{out[-3000:]}")
+    if runs[0][1] != runs[1][1]:
+        raise RuntimeError(f"two lint runs differ:\n{runs[0][1]}\n---\n{runs[1][1]}")
+    t0 = time.perf_counter()
+    report = run_analysis(load_config(root))
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    if report.new or report.findings:
+        raise RuntimeError(f"the in-process scan found {report.render_text()}")
+    with tempfile.TemporaryDirectory(prefix="cs17-lint-") as tmp:
+        with open(os.path.join(tmp, "pyproject.toml"), "w") as f:
+            f.write('[tool.gpu_analysis]\npaths = ["pkg"]\nbaseline = "bl.json"\n')
+        os.makedirs(os.path.join(tmp, "pkg"))
+        with open(os.path.join(tmp, "pkg", "mod.py"), "w") as f:
+            f.write(SEEDED_GUARDED_BY)
+        rc, out, _ = _lint(tmp, root)
+    if rc != 1 or "pkg/mod.py:14: [guarded-by]" not in out or "1 finding(s)" not in out:
+        raise RuntimeError(f"the seeded guarded-by violation: rc={rc}\n{out[-3000:]}")
+    nums = {"lint_files": report.files_scanned, "lint_suppressed": report.suppressed,
+            "lint_scan_ms": scan_ms, "lint_cli_s": [runs[0][2], runs[1][2]]}
+    log(f"lint: {runs[0][1].strip()}; two runs byte-identical; the scan {scan_ms:.1f} ms in process, "
+        f"the CLI {runs[0][2]:.2f} s and {runs[1][2]:.2f} s; the seeded guarded-by violation rc 1")
+    return nums
+
+
+def check_http_e2e(root: str, ns: str) -> float:
+    """``python -m tpu_operator_torch.e2e.http_e2e`` as a subprocess:
+    rc 0, ``HTTP-E2E PASSED`` and the maintenance window held; its wall
+    seconds."""
+    env = dict(os.environ, OPERATOR_NAMESPACE=ns, UNIT_TEST="true")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_operator_torch.e2e.http_e2e"], env=env,
+                          capture_output=True, text=True, timeout=E2E_TIMEOUT_S, cwd=root)
+    wall = time.perf_counter() - t0
+    steps = [line for line in proc.stdout.splitlines() if line.startswith("=== ")]
+    if (proc.returncode != 0 or "HTTP-E2E PASSED" not in proc.stdout
+            or "ok: maintenance window" not in proc.stdout):
+        raise RuntimeError(f"http_e2e rc={proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"http_e2e: rc 0, HTTP-E2E PASSED in {wall:.2f} s, {len(steps)} steps "
+        f"(gpu-maintenance-handler's window held over the wire)")
+    return wall
+
+
+def check_fake_e2e() -> float:
+    """``e2e.fake_e2e.main()`` with its probes on the cards over NCCL: 0,
+    and each probe's ``*-ready`` file ok for every card; its wall seconds."""
+    from tpu_operator_torch.e2e import fake_e2e
+
+    n = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="cs17-probes-") as probe_dir:
+        t0 = time.perf_counter()
+        rc = fake_e2e.main(probe_dir=probe_dir)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"fake_e2e.main() returned {rc}")
+        ready = {}
+        for component in fake_e2e.PROBES:
+            with open(os.path.join(probe_dir, f"{component}-ready")) as f:
+                payload = json.load(f)
+            width = payload.get("n_devices", payload.get("n_stages", payload.get("n_experts")))
+            if payload.get("ok") is not True or width != n:
+                raise RuntimeError(f"{component}-ready: {payload} (expected ok over {n} cards)")
+            ready[component] = width
+    log(f"fake_e2e: rc 0 in {wall:.2f} s; probes on the cards over NCCL, ready files {json.dumps(ready)}")
+    return wall
+
+
+def phase_lint_e2e() -> None:
+    """The static analyser and the two e2e drivers on the card's machine
+    (phase 17): ``check_lint``, ``check_http_e2e``, ``check_fake_e2e``."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch import consts
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    root = os.path.dirname(os.path.abspath(__file__))
+    ns = consts.DEFAULT_NAMESPACE
+    namespace_env = os.environ.get(consts.OPERATOR_NAMESPACE_ENV)
+    unit_test_env = os.environ.get("UNIT_TEST")
+    faulthandler.dump_traceback_later(LINT_E2E_TIMEOUT_S, exit=True)
+    try:
+        nums = check_lint(root)
+        nums["http_e2e_s"] = check_http_e2e(root, ns)
+        os.environ[consts.OPERATOR_NAMESPACE_ENV] = ns
+        nums["fake_e2e_s"] = check_fake_e2e()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        for key, value in ((consts.OPERATOR_NAMESPACE_ENV, namespace_env), ("UNIT_TEST", unit_test_env)):
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the analyser and the e2e drivers launched kernels of the package: {launched}")
+    log(f"lint and e2e on: {_card_line()}; {json.dumps(nums)}; "
+        f"no kernel of the package launched; phase 17 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -4965,6 +5118,7 @@ def main() -> int:
     phase_reconcilers()
     phase_operator()
     phase_churn()
+    phase_lint_e2e()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

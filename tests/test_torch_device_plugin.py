@@ -768,3 +768,30 @@ def test_plugin_module_runs_as_a_program():
         proc = subprocess.run([sys.executable, "-m", mod, "--help"], capture_output=True, text=True,
                               timeout=60)
         assert proc.returncode == 0 and flag in proc.stdout, proc.stderr
+
+
+def test_health_flips_bump_the_version_once_per_real_flip(dev_roots):
+    """``mark_unhealthy``/``mark_healthy`` hold ``_cond`` and flip through
+    the caller-holds-lock ``_set_health_locked``: each real flip bumps the
+    stream version once, a repeat bumps nothing, as the reference's inline
+    writes do."""
+    ref = ref_server.TPUDevicePluginServicer(
+        dev_root=dev_roots[0], generation="v5e", host_topology="2x4", poll_interval_s=POLL_S,
+        health_probe_interval_s=3600)
+    port = server.GPUDevicePluginServicer(dev_root=dev_roots[1], poll_interval_s=POLL_S,
+                                          health_probe_interval_s=3600)
+    steps = [("mark_unhealthy", "3"), ("mark_unhealthy", "3"), ("mark_healthy", "3"),
+             ("mark_healthy", "3"), ("mark_unhealthy", "5"), ("mark_healthy", "9")]
+    bumps = []
+    for servicer in (ref, port):
+        servicer.refresh_devices()
+        seen = []
+        for method, dev_id in steps:
+            before = servicer._version
+            getattr(servicer, method)(dev_id)
+            seen.append((servicer._version - before, servicer.snapshot().get(dev_id)))
+        servicer.stop()
+        bumps.append(seen)
+    assert bumps[0] == bumps[1]
+    assert [b for b, _ in bumps[1]] == [1, 0, 1, 0, 1, 0]
+    assert [h for _, h in bumps[1]] == ["Unhealthy", "Unhealthy", "Healthy", "Healthy", "Unhealthy", None]

@@ -1,6 +1,10 @@
 """Kubelet device-manager simulator — the kubelet's half of the
 DevicePlugin gRPC contract.
 
+# lint: ignore-file[layering] — deliberate inversion: the kubelet sim
+# IS the kubelet side of the device-plugin wire, so it speaks the
+# plugin's gRPC glue/proto directly; runtime kube/ code never does.
+
 The port's copy of ``tpu_operator/kube/kubelet_sim.py``, over the port's
 ``plugin/grpc_glue.py`` and ``plugin/proto``. The plugin component reads
 node capacity the kubelet produced from the plugin's advertisement; this

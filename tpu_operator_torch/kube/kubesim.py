@@ -64,11 +64,7 @@ from urllib.parse import parse_qs, urlparse
 
 from tpu_operator_torch import consts
 from tpu_operator_torch.kube.rest import KIND_TABLE
-from tpu_operator_torch.kube.testing import DEFAULT_VARIANT, make_gpu_node
-from tpu_operator_torch.workloads.topology import CARDS_PER_HOST
-
-# cards a simulated host advertises (one HGX H100 board)
-HOST_CARDS = CARDS_PER_HOST[DEFAULT_VARIANT]
+from tpu_operator_torch.kube.testing import HOST_CARDS, make_gpu_node
 
 # plural -> (kind, namespaced)
 PLURAL_TABLE: Dict[str, Tuple[str, bool]] = {
@@ -565,7 +561,7 @@ class KubeSim:
         # deliberate inversion: the SIM plays apiserver admission, and
         # the structural-schema engine lives in cfg/ — a runtime kube/
         # module would never reach upward like this
-        from tpu_operator_torch.cfg.schema_validate import (
+        from tpu_operator_torch.cfg.schema_validate import (  # lint: ignore[layering]
             default_cr,
             validate_cr,
         )

@@ -2,6 +2,10 @@
 fleet's kubelet and node agents, and ``running_operator``, the operator
 process as ``main()`` wires it, for the wire tests and the card's check.
 
+# lint: ignore-file[layering] — test/dev scaffolding: the doubles
+# deliberately reach upward (sliceman verdicts, CRD generation) to stay
+# faithful to what the full stack writes; runtime kube/ code never does.
+
 The port's copy of ``tpu_operator/kube/testing.py``. A GPU node
 (``make_gpu_node``) carries the labels the port's feature discovery
 (``discovery/tfd.py``) publishes for one HGX H100 board of
@@ -219,6 +223,9 @@ DEFAULT_VARIANT = "h100-sxm"
 DEFAULT_PRODUCT = "NVIDIA-H100-80GB-HBM3"  # feature discovery's product label
 DEFAULT_MEMORY_MIB = 81559  # NVML's memory total of one H100 80GB HBM3
 DEFAULT_DRIVER_VERSION = "550.90.07"
+# cards a simulated host advertises (one HGX H100 board); KubeSim reads
+# it here, so kube/'s runtime modules never import workloads/
+HOST_CARDS = topo.CARDS_PER_HOST[DEFAULT_VARIANT]
 
 
 def make_gpu_node(

@@ -140,7 +140,7 @@ class GPUDevicePluginServicer:
                 self._cond.notify_all()
         return changed
 
-    def _set_health(self, dev_id: str, health: str) -> None:
+    def _set_health_locked(self, dev_id: str, health: str) -> None:
         dev = self._devices.get(dev_id)
         if dev is not None and dev["health"] != health:
             dev["health"] = health
@@ -153,14 +153,14 @@ class GPUDevicePluginServicer:
         dev_id = str(dev_id)
         with self._cond:
             self._forced_unhealthy.add(dev_id)
-            self._set_health(dev_id, UNHEALTHY)
+            self._set_health_locked(dev_id, UNHEALTHY)
 
     def mark_healthy(self, dev_id: str) -> None:
         """Clear a forced-Unhealthy flag (the device passed a probe again)."""
         dev_id = str(dev_id)
         with self._cond:
             self._forced_unhealthy.discard(dev_id)
-            self._set_health(dev_id, HEALTHY)
+            self._set_health_locked(dev_id, HEALTHY)
 
     def stop(self, timeout_s: float = 10.0) -> None:
         """End every watch stream and the poller; joins the poller."""
