@@ -330,6 +330,35 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    its four parallelism probes on the cards over NCCL, each ``*-ready``
    file ok over every card. The times are logged beside the card's name
    and power limit; this path launches none of K1-K7c;
+18. (after 17, before 4) the reference's fault, remediation, multi-host
+   slice, chaos and alert-rule suites with the card's node in the fleet,
+   under a watchdog of ``RESILIENCE_TIMEOUT_S``, each scenario on its own
+   KubeSim with the device plugin over the real cards serving the card's
+   node beside the synthetic hosts ``RES_FLEET``, the whole operator
+   running through ``running_operator``. The write-verb matrix
+   (``WRITE_VERB_FAULTS``: 429, 500, 503 and latency on POST, PUT, APPLY
+   and LIST) brings the CR to READY with every fault consumed, the card's
+   node labelled and advertising every card, and a faulted DELETE
+   converges; a 1 s partition trips the breaker, which closes, and a spec
+   edit after it lands; a state whose control raises leaves the other
+   states' DaemonSets in place under Degraded, lifted once the fault
+   clears (``run_fault_matrix``). Every card unhealthy through its servicer
+   quarantines the card's node (cordon, taint, label) after its ``gpu-*``
+   operand pods restart, no other node touched, and the cards back recover
+   it; a synthetic host flaps to ``exhausted``; the card and one host dead
+   before remediation turns on open the breaker with 0 disruptions, and
+   the host back closes it; a crash-looping operand pod on the card's node
+   restarts without quarantine (``run_remediation_matrix``). Four kubelet
+   rigs over gRPC, the card's and three ``SyntheticChipServicer`` boards,
+   form ``RES_SLICE``, which goes ready, not ready with a ``SliceDegraded``
+   Event naming the card's node when its cards go Unhealthy, and ready
+   again (``run_slice_loop``). A storm seeded with ``CHAOS_SEED`` over a
+   fleet holding the card's node, the operator restarted halfway, settles
+   READY with every slice verdict equal to its recomputation
+   (``run_chaos``). Every alert's metric is exported, and ``NodeMetrics``
+   on the card's node reads the card count (``check_alert_names``). The
+   times are logged beside the card's name and power limit; this path
+   launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -5071,6 +5100,652 @@ def phase_lint_e2e() -> None:
         f"no kernel of the package launched; phase 17 {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the reference's fault, remediation, slice, chaos and alert-rule
+# suites with the card's node in the fleet
+# ---------------------------------------------------------------------------
+RESILIENCE_TIMEOUT_S = 600  # the phase's watchdog
+RESILIENCE_WAIT_S = 90  # for a convergence, a quarantine or a recovery
+RES_FLEET = ("res-node-1", "res-node-2", "res-node-3")  # synthetic HGX H100 hosts beside the card's node
+RES_SLICE = "res-slice"  # the card's node and RES_FLEET as one 4-host slice
+# tests/test_fault_matrix.py's write-verb matrix: (verb, fault)
+WRITE_VERB_FAULTS = (
+    ("POST", {"code": 500, "count": 2}), ("POST", {"code": 429, "retry_after": 0.05, "count": 2}),
+    ("PUT", {"code": 503, "count": 2}), ("PUT", {"code": 429, "retry_after": 0.05, "count": 1}),
+    ("PUT", {"latency_s": 0.15, "count": 2}), ("APPLY", {"code": 429, "retry_after": 0.05, "count": 2}),
+    ("APPLY", {"code": 500, "count": 1}), ("APPLY", {"code": 503, "count": 1}),
+    ("APPLY", {"latency_s": 0.15, "count": 2}), ("LIST", {"code": 500, "count": 2}),
+)
+REMEDIATION = {"enabled": True, "maxAttempts": 2, "backoffSeconds": 0, "maxUnavailable": "50%",
+               "systemicThreshold": "50%"}
+CHAOS_SEED = 20260730  # tests/test_chaos_kubesim.py's
+CHAOS_CHURN_S = 12.0
+CHAOS_MAX_NODES = 24
+
+
+def _tune_client(client):
+    """``tests/test_fault_matrix.py``'s cadence for the same retry policy
+    and breaker."""
+    client.retry_policy.backoff_s = 0.02
+    client.retry_policy.cap_s = 0.2
+    client.retry_policy.budget_s = 5.0
+    client.breaker.cooldown_base_s = 0.2
+    client.breaker.cooldown_cap_s = 0.5
+    return client
+
+
+@contextlib.contextmanager
+def _card_fleet(tmp: str, chips: list, card_labels: dict, fleet=RES_FLEET, fleet_labels=None):
+    """A KubeSim seeded with the port's CRD and sample, the card's node
+    (``card_labels``; its device plugin over the real cards, every card
+    advertised) and the synthetic hosts ``fleet`` (8 cards each, through
+    KubeSim, with ``fleet_labels(i)``). Yields ``(server, raw, capacity,
+    servicer)``; everything started stops on exit."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.kube import kubesim, testing
+
+    server = kubesim.KubeSimServer(kubesim.KubeSim(bookmark_interval_s=1.0)).start()
+    kubelet = plugin_server = None
+    try:
+        raw = kubesim.make_client(server.port)
+        testing.seed_cluster(raw, consts.DEFAULT_NAMESPACE, node_names=())
+        raw.create({"apiVersion": "v1", "kind": "Node", "metadata": {
+            "name": OPERANDS_NODE, "labels": {**card_labels, "kubernetes.io/hostname": OPERANDS_NODE}}})
+        for i, name in enumerate(fleet):
+            raw.create(testing.make_gpu_node(name, extra_labels=fleet_labels(i) if fleet_labels else None))
+            server.sim.set_node_chips(name, testing.HOST_CARDS)
+        kubelet, plugin_server, capacity = card_device_plugin(server.port, tmp, chips)
+        capacity(None)
+        yield server, raw, capacity, plugin_server.servicer
+    finally:
+        if plugin_server is not None:
+            plugin_server.stop()
+        if kubelet is not None:
+            kubelet.stop()
+        server.stop()
+
+
+def _node_fence(raw, name: str) -> tuple:
+    """(remediation state, cordoned, repair-tainted) of a node."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.kube.client import has_taint
+
+    node = raw.get("v1", "Node", name)
+    return ((node["metadata"].get("labels") or {}).get(consts.REMEDIATION_STATE_LABEL),
+            bool((node.get("spec") or {}).get("unschedulable")), has_taint(node, consts.REPAIR_TAINT_KEY))
+
+
+def _quarantined(raw, name: str) -> bool:
+    from tpu_operator_torch import consts
+
+    return _node_fence(raw, name) == (consts.REMEDIATION_STATE_QUARANTINED, True, True)
+
+
+def _clean(raw, name: str) -> bool:
+    from tpu_operator_torch import consts
+
+    return _node_fence(raw, name) == (None, False, False) and consts.REPAIR_LABEL not in _labels_of(raw, name)
+
+
+def _event(raw, reason: str, *needles) -> bool:
+    from tpu_operator_torch import consts
+
+    return any(e.get("reason") == reason and all(n in e.get("message", "") for n in needles)
+               for e in raw.list("v1", "Event", consts.DEFAULT_NAMESPACE))
+
+
+def _enable_remediation(raw, **knobs) -> None:
+    from tpu_operator_torch.kube import testing
+
+    testing.edit_clusterpolicy(raw, lambda cp: cp["spec"].update(remediation={**REMEDIATION, **knobs}))
+
+
+def _operand_pods(raw, node: str) -> dict:
+    """The card node's operand pods: name -> uid."""
+    from tpu_operator_torch import consts
+
+    return {p["metadata"]["name"]: p["metadata"].get("uid") for p in raw.list("v1", "Pod", consts.DEFAULT_NAMESPACE)
+            if p["spec"].get("nodeName") == node
+            and (p["metadata"].get("labels") or {}).get("app", "").startswith(consts.OPERAND_APP_PREFIX)}
+
+
+def run_fault_matrix(tmp: str, chips: list, labels: dict) -> dict:
+    """``tests/test_fault_matrix.py`` with the card's node in the fleet: the
+    write-verb matrix brings the CR to READY (every fault consumed, APPLY's
+    retries counted under its name, a faulted DELETE converging), the card's
+    node labelled and advertising every card; a 1 s partition trips the
+    breaker, which closes, and a spec edit after it lands; a state whose
+    control raises leaves the other states' DaemonSets in place under
+    Degraded, which lifts when the fault clears."""
+    import yaml
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.controllers import object_controls, state_manager
+    from tpu_operator_torch.controllers.clusterpolicy_controller import ClusterPolicyReconciler
+    from tpu_operator_torch.kube import client as kclient
+    from tpu_operator_torch.kube import kubesim, rest, testing
+
+    ns = consts.DEFAULT_NAMESPACE
+    n = len(chips)
+    nodes = [OPERANDS_NODE, *RES_FLEET]
+    exporter = consts.OPERAND_APPS["tpu-metrics-exporter"]
+    nums = {}
+    with _card_fleet(os.path.join(tmp, "faults"), chips, labels) as (server, raw, _, _):
+        sim = server.sim
+        client = _tune_client(kubesim.make_client(server.port))
+        for verb, fault in WRITE_VERB_FAULTS:
+            sim.inject_fault(verb, "*", **fault)
+        t0 = time.perf_counter()
+        with testing.running_operator(client, ns, nodes) as mgr:
+            _wait_for("READY through the write-verb matrix", lambda: _cr_status(raw).get("state") == "ready",
+                      RESILIENCE_WAIT_S)
+            nums["fault_ready_s"] = time.perf_counter() - t0
+            _wait_for("every injected fault consumed", lambda: sim.faults_pending() == 0, RESILIENCE_WAIT_S)
+            retry = client.fault_stats()["retry"]
+            card = _labels_of(raw, OPERANDS_NODE)
+            caps = node_caps(raw, OPERANDS_NODE)
+            if not (retry["retries_total"] and retry["retry_after_honored"] and retry["retries_by_verb"].get("APPLY")
+                    and card.get(consts.TPU_PRESENT_LABEL) == "true" and caps == (str(n), str(n))):
+                raise RuntimeError(f"the write-verb matrix: retries {retry}; card labels {card}; capacity and "
+                                   f"allocatable {caps}")
+            sim.inject_fault("DELETE", "*", code=500, count=1)
+            testing.edit_clusterpolicy(raw, lambda cp: cp["spec"]["metricsExporter"].update(enabled=False))
+            _wait_for("the faulted DELETE converged", lambda: raw.get_or_none("apps/v1", "DaemonSet", exporter, ns)
+                      is None and sim.faults_pending() == 0, RESILIENCE_WAIT_S)
+
+            trips = client.fault_stats()["breaker"]["trips_total"]
+            sim.partition(1.0)
+            time.sleep(1.2)
+            t0 = time.perf_counter()
+
+            def edit_lands():
+                try:
+                    testing.edit_clusterpolicy(client, lambda cp: cp["spec"]["metricsExporter"].update(enabled=True))
+                    return True
+                except (rest.TransientAPIError, OSError):
+                    return False
+
+            _wait_for("a spec edit after the partition", edit_lands, RESILIENCE_WAIT_S)
+            _wait_for("READY again after the partition", lambda: raw.get_or_none(
+                "apps/v1", "DaemonSet", exporter, ns) is not None and _cr_status(raw).get("state") == "ready",
+                RESILIENCE_WAIT_S)
+            nums["partition_recover_s"] = time.perf_counter() - t0
+            breaker = client.fault_stats()["breaker"]
+            if not (sim.partition_rejects and breaker["trips_total"] > trips and breaker["state"] != "open"
+                    and mgr.healthy()):
+                raise RuntimeError(f"the partition: {sim.partition_rejects} rejects, breaker {breaker}")
+            mgr.enqueue("clusterpolicy")
+            _wait_for("a pass after the matrix", lambda: mgr._last_reconcile_ok, RESILIENCE_WAIT_S)
+        card_node = raw.get("v1", "Node", OPERANDS_NODE, copy=True)
+
+    fake = kclient.FakeClient([{"apiVersion": "v1", "kind": "Namespace", "metadata": {"name": ns}}, card_node])
+    with open(testing.sample_clusterpolicy_path()) as f:
+        fake.create(yaml.safe_load(f))
+    assets = (state_manager.DEFAULT_ASSETS_DIR if os.path.isdir(state_manager.DEFAULT_ASSETS_DIR)
+              else state_manager.PACKAGE_ASSETS_DIR)
+    rec = ClusterPolicyReconciler(fake, assets_dir=assets)
+    real = object_controls.CONTROLS["daemonset"]
+
+    def exploding(ctrl, state, obj):
+        if state == "state-device-plugin":
+            raise RuntimeError("injected control failure")
+        return real(ctrl, state, obj)
+
+    object_controls.CONTROLS["daemonset"] = exploding
+    try:
+        requeued = rec.reconcile().requeue_after is not None
+    finally:
+        object_controls.CONTROLS["daemonset"] = real
+    status = fake.get(consts.API_VERSION, consts.CLUSTER_POLICY_KIND, "cluster-policy")["status"]
+    degraded = {c["type"]: c for c in status["conditions"]}["Degraded"]
+    names = {d["metadata"]["name"] for d in fake.list("apps/v1", "DaemonSet", ns)}
+    if not (requeued and [e["state"] for e in status.get("erroredStates", [])] == ["state-device-plugin"]
+            and degraded["status"] == "True" and "state-device-plugin" in degraded["message"]
+            and consts.OPERAND_APPS["tpu-feature-discovery"] in names and consts.DRIVER_APP in names
+            and consts.OPERAND_APPS["tpu-device-plugin-daemonset"] not in names):
+        raise RuntimeError(f"the raising state: {status.get('erroredStates')}; {degraded}; DaemonSets {sorted(names)}")
+    rec.reconcile()
+    status = fake.get(consts.API_VERSION, consts.CLUSTER_POLICY_KIND, "cluster-policy")["status"]
+    if "erroredStates" in status or {c["type"]: c for c in status["conditions"]}["Degraded"]["status"] != "False":
+        raise RuntimeError(f"Degraded did not lift with the fault cleared: {status}")
+    log(f"fault matrix with the card's node: READY through {len(WRITE_VERB_FAULTS)} write-verb rows in "
+        f"{nums['fault_ready_s']:.2f} s, the card's node labelled with capacity and allocatable {n}; the partition's "
+        f"breaker closed and READY again {nums['partition_recover_s']:.2f} s after it; the raising state isolated "
+        f"under Degraded with {len(names)} DaemonSets in place")
+    return nums
+
+
+def run_remediation_matrix(tmp: str, chips: list, labels: dict) -> dict:
+    """``tests/test_remediation_matrix.py`` with the card's node in the
+    fleet. World 1: every card unhealthy through its servicer quarantines
+    the card's node (cordon, taint, label) after restarting its ``gpu-*``
+    operand pods, no other node touched; the cards back recover it; then a
+    synthetic host flaps to ``exhausted``. World 2: the card and one
+    synthetic host dead before remediation turns on (half the fleet) open
+    the breaker with zero disruptions; the host back closes it and the
+    card's node is quarantined. World 3: a crash-looping operand pod on the
+    card's node is restarted without quarantine."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.kube import kubesim, testing
+
+    ns = consts.DEFAULT_NAMESPACE
+    nodes = [OPERANDS_NODE, *RES_FLEET]
+    nums = {}
+    wait = RESILIENCE_WAIT_S
+    with _card_fleet(os.path.join(tmp, "rm1"), chips, labels) as (server, raw, capacity, _):
+        sim = server.sim
+        with testing.running_operator(kubesim.make_client(server.port), ns, nodes):
+            _wait_for("READY", lambda: _cr_status(raw).get("state") == "ready", wait)
+            _enable_remediation(raw)
+            before = _operand_pods(raw, OPERANDS_NODE)
+            t0 = time.perf_counter()
+            capacity(0)
+            _wait_for("the card's node quarantined", lambda: _quarantined(raw, OPERANDS_NODE), wait)
+            nums["quarantine_s"] = time.perf_counter() - t0
+            after = _operand_pods(raw, OPERANDS_NODE)
+            restarted = sorted(p for p, uid in before.items() if after.get(p) != uid)
+            touched = [m for m in RES_FLEET if not _clean(raw, m)]
+            if not restarted or touched or not _event(raw, "NodeQuarantined", OPERANDS_NODE):
+                raise RuntimeError(f"quarantine: operand pods restarted {restarted} of {sorted(before)}; other nodes "
+                                   f"touched {touched}")
+            t0 = time.perf_counter()
+            capacity(None)
+            _wait_for("the card's node recovered", lambda: _clean(raw, OPERANDS_NODE), wait)
+            nums["recovery_s"] = time.perf_counter() - t0
+            if not _event(raw, "NodeRemediationRecovered", OPERANDS_NODE):
+                raise RuntimeError("no NodeRemediationRecovered Event names the card's node")
+            victim = RES_FLEET[0]
+            sim.kill_node_chips(victim)
+            _wait_for("the flapping host quarantined", lambda: _quarantined(raw, victim), wait)
+            sim.flap_node_chips(victim)
+            _wait_for("the flapping host recovered", lambda: _clean(raw, victim), wait)
+            sim.flap_node_chips(victim)
+            _wait_for("the flapping host exhausted", lambda: _node_fence(raw, victim) == (
+                consts.REMEDIATION_STATE_EXHAUSTED, True, True), wait)
+            sim.restore_node_chips(victim)
+            time.sleep(2.0)
+            if _node_fence(raw, victim) != (consts.REMEDIATION_STATE_EXHAUSTED, True, True) or not _event(
+                    raw, "NodeRemediationExhausted", victim):
+                raise RuntimeError(f"exhausted is not sticky: {_node_fence(raw, victim)}")
+
+    with _card_fleet(os.path.join(tmp, "rm2"), chips, labels) as (server, raw, capacity, _):
+        sim = server.sim
+        with testing.running_operator(kubesim.make_client(server.port), ns, nodes):
+            _wait_for("READY", lambda: _cr_status(raw).get("state") == "ready", wait)
+            raw.create({"apiVersion": "v1", "kind": "Pod", "metadata": {
+                "name": "train-1", "namespace": "default", "labels": {"job": "train"},
+                "ownerReferences": [{"kind": "Job", "name": "train", "uid": "j1"}]},
+                "spec": {"nodeName": OPERANDS_NODE, "containers": [
+                    {"name": "train", "resources": {"limits": {consts.GPU_RESOURCE: "1"}}}]},
+                "status": {"phase": "Running"}})
+            capacity(0)
+            sim.kill_node_chips(RES_FLEET[0])
+            t0 = time.perf_counter()
+            _enable_remediation(raw)
+            _wait_for("the systemic breaker open", lambda: (_cr_status(raw).get("remediation") or {}).get(
+                "breakerOpen") is True, wait)
+            nums["breaker_open_s"] = time.perf_counter() - t0
+            degraded = {c["type"]: c for c in _cr_status(raw).get("conditions") or []}["Degraded"]
+            time.sleep(2.0)
+            disrupted = [m for m in nodes if _node_fence(raw, m) != (None, False, False)]
+            if (degraded["status"], degraded["reason"]) != ("True", "SystemicNodeFailure") or disrupted or not (
+                    _event(raw, "SystemicNodeFailure")
+                    and raw.get_or_none("v1", "Pod", "train-1", "default") is not None):
+                raise RuntimeError(f"the systemic breaker: {degraded}; disrupted {disrupted}")
+            sim.restore_node_chips(RES_FLEET[0])
+            _wait_for("the card's node quarantined once the breaker closed", lambda: _quarantined(
+                raw, OPERANDS_NODE), 2 * wait)
+            if (_cr_status(raw).get("remediation") or {}).get("breakerOpen"):
+                raise RuntimeError("the breaker stayed open")
+
+    with _card_fleet(os.path.join(tmp, "rm3"), chips, labels) as (server, raw, _, _):
+        with testing.running_operator(kubesim.make_client(server.port), ns, nodes):
+            _wait_for("READY", lambda: _cr_status(raw).get("state") == "ready", wait)
+            _enable_remediation(raw, backoffSeconds=1)
+            app = consts.OPERAND_APPS["tpu-device-plugin-daemonset"]
+            pod = next(p for p in raw.list("v1", "Pod", ns) if p["spec"].get("nodeName") == OPERANDS_NODE
+                       and (p["metadata"].get("labels") or {}).get("app") == app)
+            name = pod["metadata"]["name"]
+            t0 = time.perf_counter()
+            server.sim.crashloop_pod(ns, name)
+            _wait_for("the crash-looping operand restarted", lambda: ((raw.get_or_none("v1", "Pod", name, ns) or {})
+                      .get("status") or {}).get("containerStatuses") == [{"ready": True}], wait)
+            _wait_for("the card's node clean", lambda: _clean(raw, OPERANDS_NODE), wait)
+            nums["crashloop_fixed_s"] = time.perf_counter() - t0
+            if _node_fence(raw, OPERANDS_NODE) != (None, False, False):
+                raise RuntimeError(f"the crash loop fenced the card's node: {_node_fence(raw, OPERANDS_NODE)}")
+    log(f"remediation matrix on the card's node: quarantined in {nums['quarantine_s']:.2f} s ({len(restarted)} of "
+        f"{len(before)} operand pods restarted, no other node touched), recovered in {nums['recovery_s']:.2f} s; a flapping "
+        f"host exhausted; half the fleet dead opened the breaker in {nums['breaker_open_s']:.2f} s with 0 "
+        f"disruptions, the card's node quarantined once it closed; a crash-looping {app} pod restarted without "
+        f"quarantine in {nums['crashloop_fixed_s']:.2f} s")
+    return nums
+
+
+def run_slice_loop(tmp: str, chips: list) -> dict:
+    """``tests/test_multihost_slice_loop.py`` with the card's node as one
+    host: four kubelet rigs over gRPC (the card's over the real cards,
+    three over ``SyntheticChipServicer`` boards) form ``RES_SLICE``, which
+    goes ready; the card's cards go Unhealthy, the slice not ready with a
+    ``SliceDegraded`` Event naming the card's node; back, ready again."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.kube import kubelet_sim, kubesim, testing
+    from tpu_operator_torch.plugin import server as plugin
+    from tpu_operator_torch.schedsim.engine import SyntheticChipServicer
+
+    ns = consts.DEFAULT_NAMESPACE
+    n = len(chips)
+    env = {"TPU_SLICE_ID": RES_SLICE, "TPU_WORKER_ID": "0", "TPU_TOPOLOGY": "4x8"}
+    labels = tfd.gather_features({"metadata": {"name": OPERANDS_NODE, "labels": {}}}, dev_root="/dev",
+                                 driver_root="/", env=env, chips=chips)
+    if (labels.get(consts.TFD_SLICE_HOSTS_LABEL), labels.get(consts.TFD_SLICE_ID_LABEL)) != ("4", RES_SLICE):
+        raise RuntimeError(f"feature discovery did not put the card's node in a 4-host slice: {labels}")
+
+    def member(i):
+        return {consts.TFD_SLICE_ID_LABEL: RES_SLICE, consts.TFD_SLICE_HOSTS_LABEL: "4",
+                consts.TFD_WORKER_ID_LABEL: str(i + 1), consts.TFD_TOPOLOGY_LABEL: "4x8"}
+
+    nums = {}
+    members = [OPERANDS_NODE, *RES_FLEET]
+    with _card_fleet(os.path.join(tmp, "slice"), chips, labels, fleet_labels=member) as (server, raw, capacity, _):
+        stops = []
+        try:
+            for name in RES_FLEET:
+                socket_dir = os.path.join(tmp, "slice", f"k-{name}")
+                kubelet = kubelet_sim.KubeletDeviceManager(kubesim.make_client(server.port), name, socket_dir)
+                kubelet.start()
+                stops.append(kubelet.stop)
+                rig = plugin.DevicePluginServer(SyntheticChipServicer(chips=testing.HOST_CARDS, host=name),
+                                                socket_dir=socket_dir)
+                rig.start()
+                stops.append(rig.stop)
+                rig.register_with_kubelet(kubelet.kubelet_socket)
+            _wait_for("every rig's cards advertised", lambda: [node_caps(raw, m)[1] for m in members] == [
+                str(n)] + [str(testing.HOST_CARDS)] * len(RES_FLEET), RESILIENCE_WAIT_S)
+
+            def verdicts(value):
+                return all(_labels_of(raw, m).get(consts.SLICE_READY_LABEL) == value for m in members)
+
+            with testing.running_operator(kubesim.make_client(server.port), ns, members):
+                _wait_for("the slice ready", lambda: verdicts("true") and (_cr_status(raw).get("slices") or {}).get(
+                    "ready") == 1, RESILIENCE_WAIT_S)
+                t0 = time.perf_counter()
+                capacity(0)
+                _wait_for("the slice not ready, its Event naming the card's node", lambda: verdicts("false") and _event(
+                    raw, "SliceDegraded", RES_SLICE, OPERANDS_NODE), RESILIENCE_WAIT_S)
+                nums["slice_not_ready_s"] = time.perf_counter() - t0
+                if node_caps(raw, RES_FLEET[0])[1] != str(testing.HOST_CARDS):
+                    raise RuntimeError("a healthy host lost its cards with the card's")
+                t0 = time.perf_counter()
+                capacity(None)
+                _wait_for("the slice ready again", lambda: verdicts("true") and (_cr_status(raw).get("slices") or {})
+                          .get("ready") == 1, RESILIENCE_WAIT_S)
+                nums["slice_ready_again_s"] = time.perf_counter() - t0
+        finally:
+            for stop in reversed(stops):
+                stop()
+    log(f"slice loop with the card's node: 4 rigs over gRPC ({n} + 3 x {testing.HOST_CARDS} cards) ready; every card "
+        f"of the card's node unhealthy -> {RES_SLICE} not ready in {nums['slice_not_ready_s']:.2f} s with its "
+        f"SliceDegraded Event naming {OPERANDS_NODE}; healthy -> ready in {nums['slice_ready_again_s']:.2f} s")
+    return nums
+
+
+def _slice_verdicts(raw) -> tuple:
+    """(expected, actual) slice verdicts of every GPU node: the expected
+    ones recomputed from live state (validator pods, allocatable,
+    maintenance), as ``tests/test_chaos_kubesim.py``'s oracle does."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.controllers import slice_status
+
+    live = [n for n in raw.list("v1", "Node") if consts.GPU_PRODUCT_LABEL in (n["metadata"].get("labels") or {})]
+    validated = slice_status.validator_ready_nodes(raw, consts.DEFAULT_NAMESPACE)
+    by_name = {n["metadata"]["name"]: n for n in live}
+    expected = {}
+    for info in slice_status.group_slices(live).values():
+        ready = sum(1 for m in info.member_nodes if m in validated
+                    and slice_status.host_allocatable_ok(by_name[m]) is not False
+                    and not (by_name[m]["metadata"].get("labels") or {}).get(consts.MAINTENANCE_STATE_LABEL))
+        want = info.expected_hosts or len(info.member_nodes)
+        verdict = "true" if want > 0 and ready >= want and len(info.member_nodes) >= want else "false"
+        expected.update({m: verdict for m in info.member_nodes})
+    actual = {m: (by_name[m]["metadata"].get("labels") or {}).get(consts.SLICE_READY_LABEL) for m in by_name}
+    return expected, actual
+
+
+def run_chaos(tmp: str, chips: list, labels: dict) -> dict:
+    """``tests/test_chaos_kubesim.py``'s storm, seeded with its
+    ``CHAOS_SEED``, on a fleet holding the card's node: nodes join and
+    leave, operand DaemonSets and pods vanish, the exporter toggles, the
+    driver version bumps under a rolling upgrade, labels and slice verdicts
+    are scribbled, watch lines dropped and the card's cards flip in its
+    plugin, while the whole operator runs, crashes halfway and restarts.
+    Then the fleet must settle READY with every upgrade done, every slice
+    verdict equal to its recomputation and the worker still passing."""
+    import itertools
+    import random
+    import threading
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.kube import client as kclient
+    from tpu_operator_torch.kube import kubesim, rest, testing
+    from tpu_operator_torch.upgrade import upgrade_state
+
+    ns = consts.DEFAULT_NAMESPACE
+    api_errors = (kclient.ConflictError, kclient.NotFoundError, rest.TransientAPIError, OSError)
+    nums = {}
+    with _card_fleet(os.path.join(tmp, "chaos"), chips, labels) as (server, raw, capacity, servicer):
+        rng = random.Random(CHAOS_SEED)
+        nodes = [OPERANDS_NODE, *RES_FLEET]
+        next_node = itertools.count(len(nodes))
+        versions = (f"550.{i}.0" for i in itertools.count(100))
+        drops = [2]
+        card_ids = sorted((str(c["index"]) for c in chips), key=int)
+        halt = threading.Event()
+
+        def mutate_cp(fn):
+            for _ in range(10):
+                try:
+                    cp = raw.get(consts.API_VERSION, consts.CLUSTER_POLICY_KIND, "cluster-policy", copy=True)
+                    fn(cp)
+                    raw.update(cp)
+                    return
+                except api_errors:
+                    time.sleep(0.02)
+
+        def add_node():
+            if len(nodes) < CHAOS_MAX_NODES:
+                name = f"chaos-node-{next(next_node)}"
+                raw.create(testing.make_gpu_node(name))
+                server.sim.set_node_chips(name, testing.HOST_CARDS)
+                nodes.append(name)
+
+        def del_node():
+            candidates = [m for m in nodes if m != OPERANDS_NODE]
+            if candidates:
+                name = rng.choice(candidates)
+                try:
+                    raw.delete("v1", "Node", name)
+                finally:
+                    if raw.get_or_none("v1", "Node", name) is None and name in nodes:
+                        nodes.remove(name)
+
+        def del_random(av, kind):
+            objs = raw.list(av, kind, ns)
+            if objs:
+                raw.delete(av, kind, rng.choice(objs)["metadata"]["name"], ns)
+
+        def scribble(key, value):
+            node = raw.get_or_none("v1", "Node", rng.choice(nodes), copy=True)
+            if node is not None:
+                node["metadata"].setdefault("labels", {})[key] = value
+                raw.update(node)
+
+        def drop_watch_line():
+            if drops[0] > 0:
+                drops[0] -= 1
+                server.sim.inject_watch_drop(rng.choice(["pods", "nodes", "daemonsets", "configmaps"]))
+
+        def flip_card():
+            card = rng.choice(card_ids)
+            (servicer.mark_unhealthy if rng.random() < 0.5 else servicer.mark_healthy)(card)
+
+        actions = [
+            add_node, del_node, lambda: del_random("apps/v1", "DaemonSet"), lambda: del_random("v1", "Pod"),
+            lambda: mutate_cp(lambda cp: cp["spec"]["metricsExporter"].update(
+                enabled=not cp["spec"]["metricsExporter"].get("enabled", True))),
+            lambda: mutate_cp(lambda cp, v=next(versions): cp["spec"]["driver"].update(version=v)),
+            lambda: scribble("chaos.test/touch", str(rng.randrange(1 << 30))),
+            drop_watch_line,
+            lambda: scribble(consts.SLICE_READY_LABEL, rng.choice(["true", "false", "banana"])),
+            flip_card,
+        ]
+
+        done = {"actions": 0, "api_errors": 0}
+
+        def storm():
+            deadline = time.monotonic() + CHAOS_CHURN_S
+            while not halt.is_set() and time.monotonic() < deadline:
+                done["actions"] += 1
+                try:
+                    rng.choice(actions)()
+                except api_errors:
+                    done["api_errors"] += 1
+                halt.wait(rng.uniform(0.02, 0.15))
+            done["ended"] = time.perf_counter()
+
+        churn = threading.Thread(target=storm, daemon=True)
+        churn.start()
+        try:
+            with testing.running_operator(kubesim.make_client(server.port), ns, nodes):
+                mutate_cp(lambda cp: cp["spec"]["driver"].update(upgradePolicy={
+                    "autoUpgrade": True, "maxParallelUpgrades": 2, "maxUnavailable": "50%"}))
+                time.sleep(CHAOS_CHURN_S / 2)
+            with testing.running_operator(kubesim.make_client(server.port), ns, nodes) as mgr:
+                time.sleep(CHAOS_CHURN_S / 2 + 1.0)
+                churn.join(timeout=30)
+                mutate_cp(lambda cp: cp["spec"]["metricsExporter"].update(enabled=True))
+                capacity(None)
+
+                def settled():
+                    if _cr_status(raw).get("state") != "ready":
+                        return False
+                    for node in raw.list("v1", "Node"):
+                        state = (node["metadata"].get("labels") or {}).get(consts.UPGRADE_STATE_LABEL)
+                        if state not in (None, upgrade_state.STATE_DONE) or (node.get("spec") or {}).get(
+                                "unschedulable"):
+                            return False
+                    expected, actual = _slice_verdicts(raw)
+                    return expected == actual and expected.get(OPERANDS_NODE) == "true"
+
+                _wait_for("the fleet settled after the storm", settled, max(180.0, 15.0 * len(nodes)))
+                nums["chaos_converge_s"] = time.perf_counter() - done["ended"]
+                mgr.enqueue("clusterpolicy")
+                _wait_for("a pass after the storm", lambda: mgr.healthy() and mgr._last_reconcile_ok,
+                          RESILIENCE_WAIT_S)
+        finally:
+            halt.set()
+            churn.join(timeout=30)
+    nums.update(chaos_nodes=len(nodes), chaos_actions=done["actions"])
+    log(f"chaos churn with the card's node (seed {CHAOS_SEED}, {CHAOS_CHURN_S:.0f} s, {done['actions']} actions, "
+        f"{done['api_errors']} refused, the operator restarted halfway): {len(nodes)} nodes settled READY "
+        f"{nums['chaos_converge_s']:.2f} s after the storm ended, every upgrade done and every slice verdict equal "
+        f"to its recomputation")
+    return nums
+
+
+def check_alert_names(n: int) -> dict:
+    """Every metric an alert of the port's two PrometheusRule assets names
+    is exported: ``OperatorMetrics`` on the global registry, ``NodeMetrics``
+    (whose gauges ``run()`` creates) on a scratch registry on the card's
+    node, its ``gpu_validator_gpu_devices`` equal to the card count."""
+    import yaml
+    from prometheus_client import REGISTRY, CollectorRegistry
+
+    from tpu_operator_torch.controllers import state_manager
+    from tpu_operator_torch.controllers.operator_metrics import OperatorMetrics
+    from tpu_operator_torch.validator.metrics import NodeMetrics
+
+    OperatorMetrics()
+    scratch = CollectorRegistry()
+    nm = NodeMetrics(node_name=OPERANDS_NODE, port=0, registry=scratch)
+    try:
+        nm.run(block=False)
+        devices = _wait_for("gpu_validator_gpu_devices", lambda: scratch.get_sample_value(
+            "gpu_validator_gpu_devices", {"node": OPERANDS_NODE}), RESILIENCE_WAIT_S)
+        known = {m.name for m in REGISTRY.collect()} | {m.name for m in scratch.collect()}
+    finally:
+        nm.stop()
+    alerts, unknown = 0, []
+    for state, name in (("state-operator-metrics", "0300_prometheus_rule.yaml"),
+                        ("state-node-status-exporter", "0800_prometheus_rule.yaml")):
+        with open(os.path.join(state_manager.PACKAGE_ASSETS_DIR, state, name)) as f:
+            doc = yaml.safe_load(f)
+        for group in doc["spec"]["groups"]:
+            for rule in group["rules"]:
+                alerts += 1
+                names = re.findall(r"\b(gpu_operator_\w+|gpu_validator_\w+)", rule["expr"])
+                unknown += [(rule["alert"], m) for m in names or ["<none>"]
+                            if m not in known and m.removesuffix("_total") not in known]
+    if unknown or devices != n:
+        raise RuntimeError(f"alerts naming no exported metric: {unknown}; gpu_validator_gpu_devices {devices}, "
+                           f"{n} card(s)")
+    log(f"alert rules: the {alerts} alerts' metrics all exported; NodeMetrics on the card's node reads "
+        f"gpu_validator_gpu_devices {devices:.0f}")
+    return {"alerts": alerts}
+
+
+def phase_resilience() -> None:
+    """The reference's fault, remediation, multi-host slice, chaos and
+    alert-rule suites with the card's node in the fleet (phase 18):
+    ``run_fault_matrix``, ``run_remediation_matrix``, ``run_slice_loop``,
+    ``run_chaos`` and ``check_alert_names``."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.discovery import tfd
+    from tpu_operator_torch.native import gpuinfo
+    from tpu_operator_torch.obs import flight
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    n = torch.cuda.device_count()
+    chips = gpuinfo.chip_summary()
+    if len(chips) != n:
+        raise RuntimeError(f"the chip table {chips} holds not the {n} cards torch sees")
+    saved = {key: os.environ.get(key) for key in (consts.OPERATOR_NAMESPACE_ENV, "INFORMER_RESYNC_INTERVAL_S")}
+    os.environ[consts.OPERATOR_NAMESPACE_ENV] = consts.DEFAULT_NAMESPACE
+    # resync fast enough that a dropped watch line heals inside the settle
+    os.environ["INFORMER_RESYNC_INTERVAL_S"] = "5"
+    flight_dir = flight.RECORDER.dir
+    faulthandler.dump_traceback_later(RESILIENCE_TIMEOUT_S, exit=True)
+    nums = {}
+    with tempfile.TemporaryDirectory(prefix="cs18-") as tmp:
+        flight.RECORDER.dir = os.path.join(tmp, "flight")
+        try:
+            labels = tfd.gather_features({"metadata": {"name": OPERANDS_NODE, "labels": {}}},
+                                         dev_root="/dev", driver_root="/", env={}, chips=chips)
+            check_features(labels, n)
+            nums.update(run_fault_matrix(tmp, chips, labels))
+            nums.update(run_remediation_matrix(tmp, chips, labels))
+            nums.update(run_slice_loop(tmp, chips))
+            nums.update(run_chaos(tmp, chips, labels))
+            nums.update(check_alert_names(n))
+        finally:
+            flight.RECORDER.dir = flight_dir
+            faulthandler.cancel_dump_traceback_later()
+            for key, value in saved.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the resilience suites launched kernels of the package: {launched}")
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"resilience on: {_card_line()}; {json.dumps(nums)}; no kernel of the package launched; "
+        f"phase 18 {nums['phase_s']:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -5119,6 +5794,7 @@ def main() -> int:
     phase_operator()
     phase_churn()
     phase_lint_e2e()
+    phase_resilience()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 """The port's event-scoped delta reconciliation (``controllers/delta.py``)
 against the JAX package's, on 7 of the 9 cases of
-``tests/test_delta_reconcile.py`` and one of the port's own: a crash-looping
+``tests/test_delta_reconcile.py`` and two of the port's own: a crash-looping
 ``gpu-*`` operand pod routes where the reference's ``tpu-*`` pod does, and
-a user pod does not.
+a user pod does not; and the keys the watch echo of a slice pass's own
+verdict write routes, which are the reference's.
 
 Each case runs one script on both sides over paired worlds, compared as
 ``tests/test_torch_reconciler.py`` sets out (``both``); the router's keys
@@ -288,3 +289,41 @@ def test_router_switch_is_the_ports_name(monkeypatch):
     assert delta.delta_enabled() is True
     monkeypatch.setenv("GPU_DELTA_RECONCILE", "0")
     assert delta.delta_enabled() is False
+
+
+def test_slice_verdict_echo_keys_match_the_reference():
+    """The router's keys for the watch echo of a ``reconcile_slice`` that
+    flips the slice's verdict labels. The world's ``FakeClient`` delivers
+    each write to the router as it lands (``add_watcher``), before
+    ``reconcile_slice`` has folded the new verdict into its mirror: the
+    ordering a fast watch gives. Both packages echo the same keys, so the
+    keys that reach the queue after a slice pass are a cost the port shares
+    with the reference, not a port fault (ROADMAP queue 3 item 2)."""
+
+    def script(w):
+        router(w)
+        converge(w)
+        w.create(make_validator_pod(NODE, True, NS))
+        w.rec.reconcile()
+        w.client.add_watcher(lambda event, obj: w.router.on_event(event, copy.deepcopy(obj)))
+        w.router.on_event("MODIFIED", w.client.get("v1", "Node", NODE, copy=True))
+        pods = w.client.list("v1", "Pod", NS, label_selector={"app": w.side.ss.VALIDATOR_APP})
+        seen = []
+        for flip in ("false", "true"):
+            if flip == "false":
+                w.client.delete("v1", "Pod", pods[0]["metadata"]["name"], NS)
+            else:
+                w.create(make_validator_pod(NODE, True, NS))
+            w.mgr.take()
+            w.rec.delta.reconcile_slice(NODE)
+            seen.append((w.label(NODE, w.c.SLICE_READY_LABEL), sorted(map(str, w.mgr.take()))))
+        w.router.on_event("MODIFIED", w.client.get("v1", "Node", NODE, copy=True))
+        seen.append(w.mgr.take())
+        return seen
+
+    ref, port = both(script)
+    assert ref == port
+    for (verdict, keys), want in zip(port[:2], ("false", "true")):
+        assert verdict == want
+        assert {str((delta.NODE_KIND, NODE)), str((delta.SLICE_KIND, NODE))} <= set(keys)
+    assert port[2] == []  # once the mirror holds the verdict, a repeat is dropped
