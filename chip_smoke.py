@@ -359,6 +359,23 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    on the card's node reads the card count (``check_alert_names``). The
    times are logged beside the card's name and power limit; this path
    launches none of K1-K7c;
+19. (after 18, before 4) the port's packaging, under a watchdog of
+   ``PACKAGING_TIMEOUT_S``, as subprocesses of this interpreter against a
+   temporary copy of ``tpu_operator_torch/deploy/``: ``python -m
+   tpu_operator_torch.cfg validate clusterpolicy|chart|csv|bundle`` each
+   exit 0; ``generate csv`` equals the shipped head CSV; ``release bundle
+   --version <VERSION>`` into the copy leaves it byte-identical to the
+   shipped tree; a chart with a stale CRD gives rc 1 and one ``INVALID:``
+   line. Then the install path on a KubeSim: the chart's CRD and the CSV's
+   alm-example CR applied, the operator started with the ``command`` and
+   ``args`` of ``deploy/config/manager/manager.yaml`` and its literal env,
+   plus phase 15's KubeSim and simulated-kubelet flags, exits 0 with the CR
+   READY and its node advertising every card; the chart's ``upgrade_crd``
+   hook body re-applies the CRD and the ``cleanup_crd`` hook body deletes
+   the CR (``run_install_path``). ``must-gather.sh`` with a stub
+   ``kubectl`` writes its tarball with ``nodes/node-labels.txt``. Each
+   step's time is logged beside the card's name and power limit; this path
+   launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -379,6 +396,7 @@ import glob
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -5746,6 +5764,260 @@ def phase_resilience() -> None:
         f"phase 18 {nums['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the port's packaging (gpuop-cfg on its install tree, the install
+# path on a KubeSim, must-gather)
+# ---------------------------------------------------------------------------
+PACKAGING_TIMEOUT_S = 60  # the phase's watchdog
+PACKAGING_STEP_TIMEOUT_S = 45  # a subprocess of the phase
+# phase 15's flags: the process's client is a KubeSim, its kubelet simulated
+# and the device plugin served over gRPC on the real cards
+INSTALL_FLAGS = ["--kubesim", "--once", "--metrics-port", "0", "--probe-port", "0", "--simulate-kubelet",
+                 "--grpc-kubelet", "--nodes", "1"]
+INSTALL_NODE = "fake-gpu-node-1"  # the node main's --kubesim path names
+# RestClient() cannot be aimed at a KubeSim by the environment alone (it
+# wants the service account's CA bundle and TLS), so the manifest's module
+# runs with its --kubesim client made by kubesim.make_client on the phase's
+# KubeSim, which holds what the install applied; argv: port, module, args
+INSTALL_BOOT = """\
+import importlib, sys
+from tpu_operator_torch.kube import kubesim
+mod = importlib.import_module(sys.argv[2])
+mod.make_kubesim_client = lambda n_nodes=1: kubesim.make_client(int(sys.argv[1]))
+sys.exit(mod.main(sys.argv[3:]))
+"""
+HOOK_CLIENT = "from tpu_operator_torch.kube.rest import RestClient;"
+MUST_GATHER_STUB = """#!/usr/bin/env bash
+printf '%s\\n' "$*" >> "$STUB_LOG"
+case "$*" in
+  *"get pods -l app=gpu-node-status-exporter -o name"*) echo "pod/gpu-node-status-exporter-n1" ;;
+  *"get pods -o name"*) echo "pod/gpu-operator-abc" ;;
+  *"get daemonsets -o name"*) echo "daemonset.apps/gpu-device-plugin" ;;
+  *"-o jsonpath={.spec.nodeName}"*) echo "node-1" ;;
+  *".spec.containers[*].name}"*) echo "main" ;;
+  *"--previous"*) exit 1 ;;
+  *exec*) echo "--- /run/tpu/validations/driver-ready"; echo '{"ok": true}' ;;
+  *) echo "kind: List" ;;
+esac
+"""
+
+
+def _cfg(root: str, cwd: str, *args) -> tuple:
+    """``python -m tpu_operator_torch.cfg`` with ``args`` from ``cwd``:
+    (rc, stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_operator_torch.cfg", *args], capture_output=True, text=True,
+                          timeout=PACKAGING_STEP_TIMEOUT_S, cwd=cwd, env=dict(os.environ, PYTHONPATH=root))
+    return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0
+
+
+def _tree_diff(a: str, b: str) -> list:
+    """Relative paths that differ between the trees ``a`` and ``b``."""
+    def files(top):
+        return {os.path.relpath(os.path.join(d, f), top) for d, _, fs in os.walk(top) for f in fs}
+
+    diff = sorted(files(a) ^ files(b))
+    for rel in sorted(files(a) & files(b)):
+        with open(os.path.join(a, rel), "rb") as fa, open(os.path.join(b, rel), "rb") as fb:
+            if fa.read() != fb.read():
+                diff.append(rel)
+    return diff
+
+
+def hook_body(template: str) -> str:
+    """The shell command of the Job in a chart hook template, as Helm
+    renders it (directive lines dropped, inline expressions as ``x``: the
+    command holds none)."""
+    import yaml
+
+    with open(template) as f:
+        lines = [line for line in f.read().splitlines() if not re.match(r"^\s*\{\{-?.*\}\}\s*$", line)]
+    text = re.sub(r"\{\{.*?\}\}", "x", "\n".join(lines))
+    (job,) = [d for d in yaml.safe_load_all(text) if d and d.get("kind") == "Job"]
+    (ctr,) = job["spec"]["template"]["spec"]["containers"]
+    if ctr["command"] != ["sh", "-c"] or HOOK_CLIENT not in ctr["args"][0]:
+        raise RuntimeError(f"{template}: the hook runs {ctr['command']} {ctr['args']}")
+    return ctr["args"][0]
+
+
+def check_cfg_tree(root: str, tree: str, tmp: str) -> dict:
+    """Steps 1-4: ``gpuop-cfg`` on the copy ``tree`` of the shipped
+    ``deploy/``, run from ``tmp``."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.cfg.release import CSV_NAME
+
+    nums = {}
+    chart, config, bundle = (os.path.join(tree, d) for d in ("gpu-operator", "config", "bundle"))
+    head = os.path.join(bundle, "manifests", CSV_NAME)
+    shipped = os.path.join(root, "tpu_operator_torch", "deploy")
+    t0 = time.perf_counter()
+    for args in (["validate", "clusterpolicy", "--input", os.path.join(config, "samples", "v1_clusterpolicy.yaml")],
+                 ["validate", "chart", "--dir", chart], ["validate", "csv", "--input", head, "--config-dir", config],
+                 ["validate", "bundle", "--dir", bundle, "--config-dir", config]):
+        rc, out, err, secs = _cfg(root, tmp, *args)
+        if rc != 0 or out != "OK\n":
+            raise RuntimeError(f"gpuop-cfg {' '.join(args[:2])} rc={rc}:\n{out}{err[-3000:]}")
+        nums[f"validate_{args[1]}_s"] = secs
+    log(f"packaging step 1: validate clusterpolicy|chart|csv|bundle each rc 0 OK in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rc, out, err, secs = _cfg(root, tmp, "generate", "csv", "--config-dir", config)
+    with open(os.path.join(shipped, "bundle", "manifests", CSV_NAME)) as f:
+        if rc != 0 or out != f.read():
+            raise RuntimeError(f"generate csv rc={rc} differs from the shipped head CSV:\n{err[-3000:]}")
+    nums["generate_csv_s"] = secs
+    log(f"packaging step 2: generate csv equals the shipped head CSV ({len(out)} bytes) in {secs:.2f} s")
+    rc, out, err, secs = _cfg(root, tmp, "release", "bundle", "--version", consts.VERSION, "--bundle-dir", bundle,
+                              "--config-dir", config)
+    diff = _tree_diff(shipped, tree)
+    if rc != 0 or diff:
+        raise RuntimeError(f"release bundle --version {consts.VERSION} rc={rc}, differs from the shipped tree at "
+                           f"{diff}:\n{err[-3000:]}")
+    nums["release_bundle_s"] = secs
+    log(f"packaging step 3: release bundle --version {consts.VERSION} leaves the tree byte-identical "
+        f"to the shipped one in {secs:.2f} s")
+    stale = os.path.join(tmp, "stale-chart")
+    shutil.copytree(chart, stale)
+    crd_path = os.path.join(stale, "crds", "tpu.k8s.io_clusterpolicies.yaml")
+    with open(crd_path) as f:
+        text = f.read()
+    with open(crd_path, "w") as f:
+        f.write(text.replace("served: true", "served: false", 1))
+    rc, out, err, secs = _cfg(root, tmp, "validate", "chart", "--dir", stale)
+    invalid = [line for line in err.splitlines() if line.startswith("INVALID: ")]
+    if rc != 1 or len(invalid) != 1 or "stale" not in invalid[0] or out:
+        raise RuntimeError(f"validate chart on a stale CRD rc={rc}:\n{out}{err[-3000:]}")
+    nums["stale_chart_s"] = secs
+    log(f"packaging step 4: a stale chart CRD gives rc 1 and one line, {invalid[0]!r}, in {secs:.2f} s")
+    return nums
+
+
+def run_install_path(root: str, tree: str, tmp: str, n: int) -> dict:
+    """Step 5: the install on a KubeSim. The chart's CRD and the CSV's
+    alm-example CR applied; the operator run as the kustomize base's
+    manager container runs it (``INSTALL_BOOT``) with phase 15's flags:
+    rc 0, the CR READY, its node advertising the ``n`` cards; the
+    ``upgrade_crd`` hook's body re-applies the generated CRD over a stale
+    one, the ``cleanup_crd`` hook's deletes the CR."""
+    import yaml
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.cfg.crdgen import build_crd
+    from tpu_operator_torch.cfg.release import CSV_NAME
+    from tpu_operator_torch.kube import kubesim, testing
+
+    nums = {}
+    chart = os.path.join(tree, "gpu-operator")
+    with open(os.path.join(chart, "crds", "tpu.k8s.io_clusterpolicies.yaml")) as f:
+        crd = yaml.safe_load(f)
+    with open(os.path.join(tree, "bundle", "manifests", CSV_NAME)) as f:
+        cr = json.loads(yaml.safe_load(f)["metadata"]["annotations"]["alm-examples"])[0]
+    with open(os.path.join(tree, "config", "manager", "manager.yaml")) as f:
+        (ctr,) = yaml.safe_load(f)["spec"]["template"]["spec"]["containers"]
+    if ctr["command"][:2] != ["python", "-m"]:
+        raise RuntimeError(f"the manager runs {ctr['command']}")
+    ns = consts.DEFAULT_NAMESPACE
+    env = dict(os.environ, PYTHONPATH=root, POD_NAME="gpu-operator-chip-smoke", POD_UID="chip-smoke-uid")
+    env.update({e["name"]: e["value"] for e in ctr["env"] if "value" in e})
+    env[consts.OPERATOR_NAMESPACE_ENV] = ns  # the manifest's fieldRef
+    server = kubesim.KubeSimServer(kubesim.KubeSim()).start()
+    try:
+        raw = kubesim.make_client(server.port)
+        raw.create({"apiVersion": "v1", "kind": "Namespace", "metadata": {"name": ns}})
+        raw.create(testing.make_gpu_node(INSTALL_NODE))
+        raw.create(crd)
+        raw.create(cr)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", INSTALL_BOOT, str(server.port), ctr["command"][2], *ctr["args"],
+                               *INSTALL_FLAGS], capture_output=True, text=True, timeout=PACKAGING_STEP_TIMEOUT_S,
+                              cwd=tmp, env=env)
+        nums["install_ready_s"] = time.perf_counter() - t0
+        state = _cr_status(raw).get("state")
+        node = raw.get("v1", "Node", INSTALL_NODE)
+        got = (node.get("status") or {}).get("allocatable", {}).get(consts.GPU_RESOURCE)
+        if proc.returncode != 0 or state != "ready" or got != str(n):
+            raise RuntimeError(f"the installed operator rc={proc.returncode}, CR {state}, {INSTALL_NODE} "
+                               f"advertising {consts.GPU_RESOURCE}={got} of {n}:\n{proc.stderr[-3000:]}")
+        log(f"packaging step 5a: the chart's CRD and the CSV's CR applied; {' '.join(ctr['command'])} "
+            f"{' '.join(ctr['args'])} + phase 15's flags exited 0 in {nums['install_ready_s']:.2f} s with the CR "
+            f"READY and {INSTALL_NODE} advertising {consts.GPU_RESOURCE}={got}")
+        aim = f"from tpu_operator_torch.kube.kubesim import make_client; RestClient = lambda: make_client({server.port});"
+        stale = json.loads(json.dumps(build_crd()))
+        stale["spec"]["versions"][0]["schema"]["openAPIV3Schema"]["properties"]["spec"]["description"] = "stale"
+        raw.apply(stale)
+        for name, want in (("upgrade_crd.yaml", "CRD applied"), ("cleanup_crd.yaml", "ClusterPolicy removed")):
+            cmd = hook_body(os.path.join(chart, "templates", name))
+            cmd = cmd.replace(HOOK_CLIENT, aim).replace("/tmp/crd.yaml", os.path.join(tmp, "crd.yaml"))
+            t0 = time.perf_counter()
+            proc = subprocess.run(["sh", "-c", cmd], capture_output=True, text=True,
+                                  timeout=PACKAGING_STEP_TIMEOUT_S, cwd=tmp, env=dict(os.environ, PYTHONPATH=root))
+            secs = nums[f"{name[:-5]}_s"] = time.perf_counter() - t0
+            if proc.returncode != 0 or not proc.stdout.strip().endswith(want):
+                raise RuntimeError(f"the {name} hook rc={proc.returncode}:\n{proc.stdout}{proc.stderr[-3000:]}")
+            log(f"packaging step 5b: the {name} hook's body printed {want!r} in {secs:.2f} s")
+        on_server = raw.get(crd["apiVersion"], crd["kind"], consts.CRD_NAME)
+        if on_server["spec"] != build_crd()["spec"]:
+            raise RuntimeError("the upgrade hook left the stale CRD in place")
+        if raw.get_or_none(consts.API_VERSION, consts.CLUSTER_POLICY_KIND, cr["metadata"]["name"]) is not None:
+            raise RuntimeError("the cleanup hook left the ClusterPolicy in place")
+    finally:
+        server.stop()
+    return nums
+
+
+def check_must_gather(tree: str, tmp: str) -> float:
+    """Step 6: ``must-gather.sh`` from the copy with a stub ``kubectl``
+    writes its tarball holding ``nodes/node-labels.txt``; its wall s."""
+    import tarfile
+
+    kubectl = os.path.join(tmp, "kubectl")
+    with open(kubectl, "w") as f:
+        f.write(MUST_GATHER_STUB)
+    os.chmod(kubectl, 0o755)
+    out = os.path.join(tmp, "gather")
+    env = dict(os.environ, KUBECTL=kubectl, ARTIFACT_DIR=out, STUB_LOG=os.path.join(tmp, "kubectl.log"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", os.path.join(tree, "must-gather.sh")], capture_output=True, text=True,
+                          timeout=PACKAGING_STEP_TIMEOUT_S, cwd=tmp, env=env)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out + ".tar.gz"):
+        raise RuntimeError(f"must-gather.sh rc={proc.returncode}:\n{proc.stdout}{proc.stderr[-3000:]}")
+    with tarfile.open(out + ".tar.gz") as t:
+        names = t.getnames()
+    if not any(name.endswith("nodes/node-labels.txt") for name in names):
+        raise RuntimeError(f"the must-gather tarball holds {names}")
+    log(f"packaging step 6: must-gather.sh rc 0 in {secs:.2f} s, tarball of {len(names)} entries "
+        f"with nodes/node-labels.txt")
+    return secs
+
+
+def phase_packaging() -> None:
+    """The port's packaging (phase 19): ``check_cfg_tree``,
+    ``run_install_path`` and ``check_must_gather`` on a temporary copy of
+    ``tpu_operator_torch/deploy/``."""
+    from tpu_operator_torch import _build
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    root = os.path.dirname(os.path.abspath(__file__))
+    n = torch.cuda.device_count()
+    faulthandler.dump_traceback_later(PACKAGING_TIMEOUT_S, exit=True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="cs19-") as tmp:
+            tree = os.path.join(tmp, "deploy")
+            shutil.copytree(os.path.join(root, "tpu_operator_torch", "deploy"), tree)
+            nums = check_cfg_tree(root, tree, tmp)
+            nums.update(run_install_path(root, tree, tmp, n))
+            nums["must_gather_s"] = check_must_gather(tree, tmp)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the packaging launched kernels of the package: {launched}")
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"packaging on: {_card_line()}; {json.dumps(nums)}; no kernel of the package launched; "
+        f"phase 19 {nums['phase_s']:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -5795,6 +6067,7 @@ def main() -> int:
     phase_churn()
     phase_lint_e2e()
     phase_resilience()
+    phase_packaging()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,7 +29,9 @@ and the ``gpuop-cfg`` CLI (``cfg/``), and the client stack, KubeSim and
 the simulated kubelet (``kube/``), nor the controllers (``controllers/``,
 ``upgrade/``) and the operator process that runs them off a watch-fed
 workqueue (``manager.py``, ``shard.py``, ``main.py``, the ``gpu-operator``
-script). grpc, protobuf, PyYAML and
+script). ``deploy/`` holds the port's install tree (the Helm chart, the
+kustomize base, the OLM bundle, must-gather and the e2e pod), which
+``gpuop-cfg`` generates and lints. grpc, protobuf, PyYAML and
 ``prometheus_client`` are imported only inside the functions that need
 them, and grpc by ``kube/kubelet_sim.py``, which nothing imports with the
 package.

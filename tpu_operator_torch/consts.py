@@ -13,6 +13,31 @@ fallback and the driver's paths are the card's (``nvidia.com/gpu``,
 embeds ``libtpu`` takes ``driver``.
 """
 
+# --- Version (single source: versions.mk; reference consts.py:14-36) ----
+
+
+def _read_version() -> str:
+    """The release version lives in the repo's ``versions.mk`` (the pin the
+    chart, the CSV generator and the workload image share); an installed
+    package without the file falls back to the last released value."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(__file__), "..", "versions.mk")
+    try:
+        with open(path) as f:
+            for line in f:
+                m = re.match(r"VERSION \?=\s*(\S+)", line)
+                if m:
+                    return m.group(1)
+    except OSError:
+        pass
+    return "0.2.0"
+
+
+VERSION = _read_version()
+DEFAULT_REGISTRY = "gcr.io/tpu-operator"
+
 # --- API group, the CRD and node labels (reference consts.py) ----------
 GROUP = "tpu.k8s.io"
 API_VERSION = f"{GROUP}/v1"
@@ -223,7 +248,8 @@ CDI_KIND = GPU_RESOURCE  # the CDI spec's kind: devices are nvidia.com/gpu=<id>
 
 # the image the workload pods run (stands in for DEFAULT_JAX_WORKLOAD_IMAGE,
 # :35); the CUDA_WORKLOAD_IMAGE environment variable overrides it
-DEFAULT_CUDA_WORKLOAD_IMAGE = "gcr.io/tpu-operator/tpu-operator-cuda-validator:0.2.0"
+# (the tag the release publishes, following VERSION)
+DEFAULT_CUDA_WORKLOAD_IMAGE = f"{DEFAULT_REGISTRY}/tpu-operator-cuda-validator:{VERSION}"
 
 # --- host paths ----------------------------------------------------------
 # status-file barrier directory
