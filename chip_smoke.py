@@ -376,6 +376,25 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    ``kubectl`` writes its tarball with ``nodes/node-labels.txt``. Each
    step's time is logged beside the card's name and power limit; this path
    launches none of K1-K7c;
+20. (after 19, before 4) the port's images, under a watchdog of
+   ``IMAGES_TIMEOUT_S``, with no ``docker``, on a temporary prefix:
+   ``deploy/docker/install.sh --prefix <tmp> --kernels`` as the operator
+   image's build stage runs it (no card visible), its native build and
+   kernel prebuild each compiling into the prefix's copy of
+   ``tpu_operator_torch/``, every command the port's containers exec
+   (``cfg/images.exec_commands``) resolving under ``<tmp>/bin`` and no file
+   there naming a ``tpu_operator.`` module; with the card visible the
+   prefix's ``gpu_smoke --json`` against ``nvidia-smi``, and ``gpu-validator
+   --component membw`` and ``flashattn`` through the prefix, each ok
+   (flashattn's ``max_err`` < 2e-2) with the prebuilt key directory's
+   listing and the library's mtime unchanged: K2 and K3 launch in those
+   subprocesses from the prebuilt library and nothing compiles; the
+   commands of ``cuda_workload_pod``, ``plugin_workload_pod`` and
+   ``deploy/gpu-pod.yaml`` with ``python3`` from the prefix, each printing
+   its success line with the card's name or count; ``e2e/scripts/
+   end-to-end.sh`` against stub ``kubectl`` and ``helm``, rc 0 with ``E2E
+   PASSED``. Each step's time is logged beside the card's name and power
+   limit; this process launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -6018,6 +6037,232 @@ def phase_packaging() -> None:
         f"phase 19 {nums['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the port's images (install.sh into a temporary prefix with the
+# image's builds, the validator's kernels from the prebuilt library, the
+# workload pods' scripts, the cluster e2e against stubs)
+# ---------------------------------------------------------------------------
+IMAGES_TIMEOUT_S = 480  # the phase's watchdog
+IMAGES_BUILD_TIMEOUT_S = 300  # install.sh with its g++ and nvcc builds
+IMAGES_STEP_TIMEOUT_S = 240  # one validator component, pod script or e2e run
+INSTALL_SCRIPT = os.path.join("tpu_operator_torch", "deploy", "docker", "install.sh")
+E2E_SCRIPT = os.path.join("tpu_operator_torch", "e2e", "scripts", "end-to-end.sh")
+# kubectl and helm for end-to-end.sh: a cluster where every poll reads
+# ready, the operands keep their uids, the exporter goes on disable and the
+# ringattn init container comes on enable; the workload's log is the line
+# the gpu-pod.yaml command printed on the card (STUB_POD_LOG)
+E2E_STUB = """#!/usr/bin/env bash
+printf '%s\\n' "$(basename "$0") $*" >> "$STUB_LOG"
+case "$(basename "$0") $*" in
+  "helm "*) ;;
+  *"{.items[*].metadata.name}"*) echo "pod-a" ;;
+  *'@.type=="Ready"'*) echo "True" ;;
+  *"{.items[0].status.state}"*) echo "ready" ;;
+  *"{.items[*].metadata.uid}"*) echo "uid-a" ;;
+  *"{.status.phase}"*) echo "Succeeded" ;;
+  *"logs "*) echo "$STUB_POD_LOG" ;;
+  *"get ds gpu-metrics-exporter"*) exit 1 ;;
+  *"initContainers[*].name}"*) echo "driver-validation toolkit-validation cuda-validation ringattn-validation" ;;
+esac
+"""
+
+
+def _key_dir_state(key_dir: str) -> tuple:
+    """The prebuilt key directory's listing and the library's mtime."""
+    from tpu_operator_torch import _build
+
+    return sorted(os.listdir(key_dir)), os.stat(os.path.join(key_dir, _build.LIB_NAME)).st_mtime_ns
+
+
+def run_image_install(root: str, prefix: str, tmp: str) -> dict:
+    """Steps 1-2: ``install.sh`` as the image's build stage runs it
+    (``--kernels``, no card visible) into ``prefix``: the native build and
+    the kernel prebuild each compile, every command the port's containers
+    exec resolves under ``prefix/bin`` and no file there names a
+    ``tpu_operator.`` module."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch.cfg import images
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", os.path.join(root, INSTALL_SCRIPT), "--prefix", prefix, "--python",
+                           sys.executable, "--kernels"], capture_output=True, text=True,
+                          timeout=IMAGES_BUILD_TIMEOUT_S, cwd=tmp, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    install_s = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    native = re.search(r"native build: built=(\w+) ([\d.]+) s (\S+)", out)
+    kernels = re.search(r"kernel prebuild: key=(\w+) built=(\w+) ([\d.]+) s (\S+)", out)
+    lib = os.path.join(prefix, "lib", "gpu-operator")
+    key_dir = os.path.join(lib, "build", "tpu_operator_torch", _build.source_hash())
+    if (proc.returncode != 0 or not native or not kernels or native.group(1) != "True" or kernels.group(2) != "True"
+            or os.path.dirname(kernels.group(4)) != key_dir):
+        raise RuntimeError(f"install.sh --kernels rc={proc.returncode}, the builds not fresh or not at {key_dir}:\n"
+                           f"{out[-3000:]}")
+    nums = {"install_s": install_s, "native_build_s": float(native.group(2)),
+            "kernel_prebuild_s": float(kernels.group(3))}
+    log(f"images step 1-2: CUDA_VISIBLE_DEVICES='' install.sh --prefix <tmp> --kernels rc 0 in {install_s:.2f} s: "
+        f"native build {nums['native_build_s']:.2f} s, kernel prebuild {nums['kernel_prebuild_s']:.2f} s "
+        f"(key {kernels.group(1)})")
+    copy = os.path.join(lib, "tpu_operator_torch")
+    missing = images.unresolved(prefix, copy)
+    foreign = images.foreign_modules(prefix)
+    commands = images.exec_commands(copy)
+    if missing or foreign:
+        raise RuntimeError(f"the prefix lacks {missing}; files naming tpu_operator. modules: {foreign}")
+    log(f"images step 1: the {len(commands)} commands the containers exec resolve under <tmp>/bin or the base "
+        f"system ({sorted(images.BASE_COMMANDS & set(commands))}); no file there names a tpu_operator. module")
+    return nums
+
+
+def run_image_kernels(prefix: str, tmp: str, n: int) -> dict:
+    """Step 3: with the card visible, the image's ``gpu_smoke`` against
+    ``nvidia-smi``, and the validator's ``membw`` and ``flashattn`` through
+    the prefix's ``gpu-validator``, which load the prebuilt kernel library
+    and compile nothing."""
+    from tpu_operator_torch import _build, consts
+
+    nums = {}
+    bin_dir = os.path.join(prefix, "bin")
+    t0 = time.perf_counter()
+    check_smoke(os.path.join(bin_dir, "gpu_smoke"), os.path.join(tmp, "smoke"), n)
+    nums["gpu_smoke_s"] = time.perf_counter() - t0
+    key_dir = os.path.join(prefix, "lib", "gpu-operator", "build", "tpu_operator_torch", _build.source_hash())
+    before = _key_dir_state(key_dir)
+    env = dict(os.environ, PATH=bin_dir + os.pathsep + os.environ.get("PATH", ""))
+    status_dir = os.path.join(tmp, "validations")
+    library = os.path.join(key_dir, _build.LIB_NAME)
+    for component, status_file in (("membw", consts.STATUS_FILE_MEMBW), ("flashattn", consts.STATUS_FILE_FLASHATTN)):
+        t0 = time.perf_counter()
+        output = os.path.join(tmp, f"{component}.log")
+        with open(output, "w") as out:
+            proc = subprocess.Popen(["gpu-validator", "--component", component, "--output-dir", status_dir],
+                                    stdout=out, stderr=subprocess.STDOUT, cwd=tmp, env=env)
+            # the kernel library the validator maps (the shim execs Python
+            # in the same process): the prefix's, not the repo's build
+            mapped = set()
+            while proc.poll() is None and time.perf_counter() - t0 < IMAGES_STEP_TIMEOUT_S:
+                with contextlib.suppress(OSError), open(f"/proc/{proc.pid}/maps") as f:
+                    mapped |= {line.split()[-1] for line in f if line.rstrip().endswith(_build.LIB_NAME)}
+                time.sleep(0.05)
+            proc.wait(timeout=IMAGES_STEP_TIMEOUT_S)
+        secs = nums[f"{component}_s"] = time.perf_counter() - t0
+        with open(output) as f:
+            stderr = f.read()
+        if mapped != {library}:
+            raise RuntimeError(f"gpu-validator --component {component} mapped {mapped}, not {library}")
+        payload = {}
+        if os.path.exists(os.path.join(status_dir, status_file)):
+            with open(os.path.join(status_dir, status_file)) as f:
+                payload = json.load(f)
+        if proc.returncode != 0 or payload.get("ok") is not True:
+            raise RuntimeError(f"<tmp>/bin/gpu-validator --component {component} rc={proc.returncode} "
+                               f"{payload}:\n{stderr[-3000:]}")
+        if component == "flashattn" and not payload["max_err"] < FLASH_TOL_ORACLE:
+            raise RuntimeError(f"flashattn from the image: max_err {payload['max_err']}")
+        log(f"images step 3: <tmp>/bin/gpu-validator --component {component} rc 0 in {secs:.2f} s, the "
+            f"prefix's kernel library mapped: {json.dumps(payload)}")
+    after = _key_dir_state(key_dir)
+    if after != before:
+        raise RuntimeError(f"the validator changed the prebuilt key directory: {before} -> {after}")
+    log(f"images step 3: the prebuilt key directory {before[0]} and the library's mtime unchanged: "
+        f"nothing compiled on the node")
+    return nums
+
+
+def run_image_pods(prefix: str, tmp: str, n: int) -> tuple:
+    """Step 4: the workload pods' commands as the workload image runs them
+    (``python3`` from the prefix's ``PATH``), each pod's env set: the
+    matmul pod, the plugin's device-count pod and ``deploy/gpu-pod.yaml``.
+    Returns the seconds of each and the gpu-pod's line."""
+    import yaml
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.validator import workload_pods as wp
+
+    card = torch.cuda.get_device_name(0)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tpu_operator_torch", "deploy",
+                           "gpu-pod.yaml")) as f:
+        (gpu_pod_ctr,) = yaml.safe_load(f)["spec"]["containers"]
+    pods = (
+        ("cuda_workload_pod", wp.cuda_workload_pod(OPERANDS_NODE, consts.DEFAULT_NAMESPACE)["spec"]["containers"][0],
+         lambda out: out == f"CUDA matmul OK on {card}"),
+        ("plugin_workload_pod", wp.plugin_workload_pod(OPERANDS_NODE, consts.DEFAULT_NAMESPACE)["spec"]["containers"][0],
+         lambda out: out == f"{n} GPU device(s) visible"),
+        ("gpu-pod.yaml", gpu_pod_ctr,
+         lambda out: out.startswith("OK ") and out.endswith(card)),
+    )
+    nums, pod_line = {}, ""
+    for name, ctr, ok in pods:
+        env = dict(os.environ, PATH=os.path.join(prefix, "bin") + os.pathsep + os.environ.get("PATH", ""))
+        env.update({e["name"]: e["value"] for e in ctr.get("env") or [] if "value" in e})
+        t0 = time.perf_counter()
+        proc = subprocess.run(ctr["command"], capture_output=True, text=True, timeout=IMAGES_STEP_TIMEOUT_S,
+                              cwd=tmp, env=env)
+        secs = nums[f"{name}_s"] = time.perf_counter() - t0
+        out = proc.stdout.strip()
+        if proc.returncode != 0 or not ok(out):
+            raise RuntimeError(f"the {name} command rc={proc.returncode} printed {out!r}:\n{proc.stderr[-3000:]}")
+        log(f"images step 4: {name} ({ctr['command'][0]} -c ...) rc 0 in {secs:.2f} s: {out}")
+        pod_line = out
+    return nums, pod_line
+
+
+def run_image_e2e(root: str, tmp: str, pod_line: str) -> float:
+    """Step 5: ``end-to-end.sh`` against stub ``kubectl`` and ``helm`` (and
+    a ``sleep`` that returns) on ``PATH``, polls at 0 s: rc 0 with ``E2E
+    PASSED``; its wall s."""
+    stubs = os.path.join(tmp, "e2e-stubs")
+    os.makedirs(stubs)
+    for name, body in (("kubectl", E2E_STUB), ("helm", E2E_STUB), ("sleep", "#!/bin/sh\nexit 0\n")):
+        with open(os.path.join(stubs, name), "w") as f:
+            f.write(body)
+        os.chmod(os.path.join(stubs, name), 0o755)
+    log_path = os.path.join(tmp, "e2e-calls.log")
+    env = dict(os.environ, PATH=stubs + os.pathsep + os.environ.get("PATH", ""), STUB_LOG=log_path,
+               STUB_POD_LOG=pod_line, POLL_S="0")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", os.path.join(root, E2E_SCRIPT)], capture_output=True, text=True,
+                          timeout=IMAGES_STEP_TIMEOUT_S, cwd=tmp, env=env)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or lines[-1] != "E2E PASSED":
+        raise RuntimeError(f"end-to-end.sh rc={proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    with open(log_path) as f:
+        calls = f.read().splitlines()
+    log(f"images step 5: end-to-end.sh (stub kubectl and helm) rc 0 in {secs:.2f} s, {len(calls)} calls, "
+        f"{lines[-1]}")
+    return secs
+
+
+def phase_images() -> None:
+    """The port's images (phase 20), under a watchdog of
+    ``IMAGES_TIMEOUT_S``, with no ``docker``: ``run_image_install``,
+    ``run_image_kernels``, ``run_image_pods`` and ``run_image_e2e`` on a
+    temporary prefix holding a copy of ``tpu_operator_torch/``."""
+    from tpu_operator_torch import _build
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    root = os.path.dirname(os.path.abspath(__file__))
+    n = torch.cuda.device_count()
+    faulthandler.dump_traceback_later(IMAGES_TIMEOUT_S, exit=True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="cs20-") as tmp:
+            prefix = os.path.join(tmp, "prefix")
+            nums = run_image_install(root, prefix, tmp)
+            nums.update(run_image_kernels(prefix, tmp, n))
+            pods, pod_line = run_image_pods(prefix, tmp, n)
+            nums.update(pods)
+            nums["e2e_s"] = run_image_e2e(root, tmp, pod_line)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the images phase launched kernels of the package in this process: {launched}")
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"images on: {_card_line()}; {json.dumps(nums)}; K2 and K3 launched only in the validator's "
+        f"subprocesses; phase 20 {nums['phase_s']:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -6068,6 +6313,7 @@ def main() -> int:
     phase_lint_e2e()
     phase_resilience()
     phase_packaging()
+    phase_images()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

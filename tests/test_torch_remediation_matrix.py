@@ -217,9 +217,14 @@ def test_systemic_failure_opens_breaker_zero_disruptions():
                         {"name": "train", "resources": {"limits": {side.resource: "4"}}}]},
                     "status": {"phase": "Running"}})
                 # both hosts die before remediation is on, so the first
-                # enabled pass sees the systemic picture
+                # enabled pass sees the systemic picture. The nodes and the
+                # CR come to the operator on separate watches: wait until
+                # its status names both dead hosts, else the CR edit can
+                # land first and a pass seeing one victim fences it
                 sim.kill_node_chips(nodes[0])
                 sim.kill_node_chips(nodes[1])
+                out["kills seen"] = wait(
+                    lambda: (cp_status(client).get("slices") or {}).get("degraded") == sorted(nodes[:2]), 60)
                 enable_remediation(side, client)
                 out["breaker open"] = wait(lambda: remediation(client).get("breakerOpen") is True, 60)
                 degraded = {c["type"]: c for c in cp_status(client).get("conditions") or []}["Degraded"]
