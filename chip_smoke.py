@@ -395,6 +395,19 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    end-to-end.sh`` against stub ``kubectl`` and ``helm``, rc 0 with ``E2E
    PASSED``. Each step's time is logged beside the card's name and power
    limit; this process launches none of K1-K7c;
+21. (after 20, before 4) the port's fleet drivers, under a watchdog of
+   ``FLEET_DRIVERS_TIMEOUT_S``, each as ``python -m
+   tpu_operator_torch.e2e.<driver>`` one after another
+   (``FLEET_DRIVER_RUNS``, ``bench.py``'s fleet runs cut in size):
+   ``fleet_converge`` with a warm restart (its first pass zero-write and
+   zero-list), a join storm with a preemption wave (every joined node
+   slice-ready), a staged roll (canary, wave, fleet), a churn storm (every
+   round settled), bulk pods (kept out of the Pod informer) and three
+   sharded replicas with the leader killed (the failover journal-seeded
+   with no write and no re-list); ``alloc_churn`` under a card-death wave
+   with 0 invariant violations. Each exits 0 with ``ok`` true, and its
+   JSON line is printed with its wall time after the card's name and
+   power limit; this process launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
    temporary directory.
@@ -6263,6 +6276,100 @@ def phase_images() -> None:
         f"subprocesses; phase 20 {nums['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the fleet drivers (fleet_converge, shard_replica, alloc_churn)
+# as subprocesses, at bench.py's runs cut to fit the phase
+# ---------------------------------------------------------------------------
+FLEET_DRIVERS_TIMEOUT_S = 600  # the phase's watchdog
+FLEET_DRIVER_TIMEOUT_S = 300  # one driver's subprocess
+# (module, arguments): bench.py's fleet runs, each cut in size (PERF.md §4)
+FLEET_DRIVER_RUNS = (
+    ("fleet_converge", ["--nodes", "256", "--warm-restart"]),
+    ("fleet_converge", ["--nodes", "16", "--join-storm", "256", "--preempt-pct", "10"]),
+    ("fleet_converge", ["--nodes", "64", "--rollout"]),
+    ("fleet_converge", ["--nodes", "256", "--churn-storm", "8"]),
+    ("fleet_converge", ["--nodes", "100", "--pods", "2000"]),
+    ("fleet_converge", ["--nodes", "256", "--replicas", "3", "--shards", "6", "--kill-leader"]),
+    ("alloc_churn", ["--nodes", "256", "--churn-floor-s", "20", "--min-rate", "500"]),
+)
+
+
+def _flag(args: list, name: str):
+    return args[args.index(name) + 1] if name in args else None
+
+
+def check_fleet_line(args: list, line: dict) -> list:
+    """What a driver's line must hold beyond ``ok``, by the mode its
+    arguments ask for; the problems found."""
+    bad = []
+    if "--warm-restart" in args and not (line.get("warm_loaded") and line.get("warm_first_pass_writes") == 0
+                                         and line.get("warm_relists") == 0):
+        bad.append("the warm restart wrote or listed")
+    if "--join-storm" in args:
+        joined = (line.get("join_phase_latency") or {}).get("slice_ready", {}).get("nodes")
+        if joined != int(_flag(args, "--join-storm")) or line.get("preempt_recover_s") is None:
+            bad.append(f"join storm: {joined} nodes slice-ready, preemption recovered {line.get('preempt_recover_s')}")
+    if "--rollout" in args and line.get("rollout_stages") != 3:
+        bad.append(f"the roll took {line.get('rollout_stages')} stages, not canary, wave and fleet")
+    if "--churn-storm" in args and not line.get("churn_ok"):
+        bad.append("a churn-storm round did not settle")
+    if "--pods" in args and not 0 < (line.get("pod_informer_objects") or 0) < int(_flag(args, "--pods")):
+        bad.append(f"the Pod informer holds {line.get('pod_informer_objects')} objects")
+    if "--kill-leader" in args:
+        fo = line.get("failover") or {}
+        if not (fo.get("journal_seeded") and fo.get("relists") == 0 and fo.get("writes_during_failover") == 0):
+            bad.append(f"the failover was not journal-seeded with no write and no re-list: {fo}")
+    if "invariant_violations" in line and (line["invariant_violations"] or line["double_allocations"]
+                                           or line["partial_gang_violations"] or line["chips_leaked"]):
+        bad.append("an allocation invariant broke")
+    return bad
+
+
+def run_fleet_driver(root: str, ns: str, module: str, args: list) -> dict:
+    """``python -m tpu_operator_torch.e2e.<module> <args>`` as a
+    subprocess: rc 0, one JSON line with ``ok`` true and the mode's own
+    claims (``check_fleet_line``); the line, printed, with its wall time."""
+    env = dict(os.environ, OPERATOR_NAMESPACE=ns, UNIT_TEST="true")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"tpu_operator_torch.e2e.{module}", *args], env=env,
+                          capture_output=True, text=True, timeout=FLEET_DRIVER_TIMEOUT_S, cwd=root)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    line = json.loads(lines[-1]) if lines else {}
+    bad = check_fleet_line(args, line)
+    if proc.returncode != 0 or line.get("ok") is not True or bad:
+        raise RuntimeError(f"{module} {' '.join(args)} rc={proc.returncode} {bad}:\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-3000:]}")
+    log(f"{module} {' '.join(args)}: rc 0 in {wall:.2f} s; {json.dumps(line)}")
+    return {"wall_s": wall, "line": line}
+
+
+def phase_fleet_drivers() -> None:
+    """The port's fleet drivers (phase 21), under a watchdog of
+    ``FLEET_DRIVERS_TIMEOUT_S``: each of ``FLEET_DRIVER_RUNS`` through
+    ``run_fleet_driver``, one after another."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch import consts
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    root = os.path.dirname(os.path.abspath(__file__))
+    card = _card_line()
+    log(f"fleet drivers on: {card}")
+    walls = {}
+    faulthandler.dump_traceback_later(FLEET_DRIVERS_TIMEOUT_S, exit=True)
+    try:
+        for module, args in FLEET_DRIVER_RUNS:
+            walls[f"{module} {' '.join(args)}"] = run_fleet_driver(root, consts.DEFAULT_NAMESPACE, module, args)["wall_s"]
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    if launched:
+        raise RuntimeError(f"the fleet drivers' phase launched kernels of the package in this process: {launched}")
+    log(f"fleet drivers on: {card}; wall s {json.dumps(walls)}; no kernel of the package launched; "
+        f"phase 21 {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(chain) -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
@@ -6314,6 +6421,7 @@ def main() -> int:
     phase_resilience()
     phase_packaging()
     phase_images()
+    phase_fleet_drivers()
     phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
