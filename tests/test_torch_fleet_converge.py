@@ -333,3 +333,76 @@ def test_rollout_spec_is_the_reference_spec_at_the_port_base():
         "upgradePolicy": {"autoUpgrade": True, "maxParallelUpgrades": 256, "maxUnavailable": "25%"},
     }
     assert cp["spec"]["rollout"] == {"enabled": True, "canary": 1, "waves": ["10%"], "observeSeconds": 1}
+
+
+def test_settle_quiesced_restamps_a_status_the_halted_kubelet_left_stale(monkeypatch):
+    """A kubelet halted after a preemption can leave a DaemonSet's status
+    counting a node that is gone, with its pods already deleted. Nothing
+    corrects it once the kubelet is halted, and every steady pass read that
+    operand as not ready (``--join-storm 256 --preempt-pct 10``, about one
+    run in five). ``settle_quiesced`` finishes the sweep, repairs the
+    stopped manager's cache and settles, so the steady passes read a world
+    at rest."""
+    import threading
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.e2e import fleet_converge
+    from tpu_operator_torch.kube import kubesim, testing
+    from tpu_operator_torch.main import CP_KEY, build_manager, wire_event_sources
+
+    ns = consts.DEFAULT_NAMESPACE
+    monkeypatch.setenv("OPERATOR_NAMESPACE", ns)
+    monkeypatch.setenv("UNIT_TEST", "true")
+    monkeypatch.setenv("WRITE_PIPELINE_DEPTH", "4")
+    nodes = [f"fleet-{i}" for i in range(4)]
+    server = kubesim.KubeSimServer(kubesim.KubeSim(compact_keep=16384)).start()
+    halt, stop = threading.Event(), threading.Event()
+    mgr = None
+    try:
+        client = kubesim.make_client(server.port)
+        testing.seed_cluster(client, ns, node_names=())
+        server.sim.add_nodes(len(nodes), names=nodes)
+        mgr, rec, _ = build_manager(client, ns, metrics_port=0, probe_port=0)
+        wire_event_sources(mgr, client, ns, stop_event=stop)
+        mgr.start()
+
+        def kubelet():
+            while not halt.is_set():
+                try:
+                    testing.simulate_kubelet_nodes(client, ns, nodes, halt_event=halt)
+                except Exception:
+                    pass  # races with the operator; the next sweep retries
+                halt.wait(0.1)
+
+        kubelet_thread = threading.Thread(target=kubelet, daemon=True)
+        kubelet_thread.start()
+        mgr.enqueue(CP_KEY)
+        state = None
+        deadline = time.monotonic() + CONVERGE_WAIT_S
+        while time.monotonic() < deadline and state != "ready":
+            cp = client.get_or_none(consts.API_VERSION, consts.CLUSTER_POLICY_KIND, "cluster-policy") or {}
+            state = cp.get("status", {}).get("state")
+            time.sleep(0.1)
+        assert state == "ready"
+        halt.set()
+        kubelet_thread.join(timeout=60)
+        mgr.stop()
+        # the preemption lands after the kubelet's last stamp
+        assert server.sim.delete_node(nodes.pop())
+        driver = client.get("apps/v1", "DaemonSet", consts.DRIVER_APP, ns)
+        assert driver["status"]["desiredNumberScheduled"] == 4
+        mgr.client.resync_once(ignore_stop=True)
+        assert rec.reconcile().ready is False
+
+        fleet_converge.settle_quiesced(client, ns, nodes, mgr.client, rec, server.sim)
+        driver = client.get("apps/v1", "DaemonSet", consts.DRIVER_APP, ns)
+        assert driver["status"]["desiredNumberScheduled"] == 3
+        before = server.sim.requests_total()
+        assert rec.reconcile().ready is True
+        assert server.sim.requests_total() - before <= 2
+    finally:
+        halt.set()
+        stop.set()
+        if mgr is not None:
+            mgr.stop()
+        server.stop()

@@ -1,12 +1,24 @@
 """The port's timing helpers give the JAX package's answers on a scripted
-clock and scripted steps (exact equality: same arithmetic, same order)."""
+clock and scripted steps (exact equality: same arithmetic, same order).
+
+The three ``adjacent_ratio_stats`` cases of ``tests/test_bench_gate.py``
+(drift cancelled, exact ratios under slow drift, the transform hook) run
+on each package under their own names (``two_sided.hold``), on scripted
+measurements, with the reference's assertions made on each side; the
+statistics must be equal.
+"""
 
 import time
+from types import SimpleNamespace
 
 import pytest
 
+from tests.two_sided import BY_SIDE, hold
 from tpu_operator.workloads import timing as ref_timing
 from tpu_operator_torch.workloads import timing as port_timing
+
+SIDES = {"reference": SimpleNamespace(name="reference", timing=ref_timing),
+         "port": SimpleNamespace(name="port", timing=port_timing)}
 
 
 def scripted_clock(monkeypatch, ticks):
@@ -59,3 +71,54 @@ def test_adjacent_ratio_stats_matches_reference(with_transform):
         scripted(values), 1.0, cands, reps=5, transform=transform
     )
     assert got == want
+
+
+@BY_SIDE
+def test_adjacent_ratio_stats_cancels_drift(side):
+    """A candidate a constant 2x faster reads a median above 1, bracketed
+    by its quartiles, while the measurement drifts across reps."""
+
+    def script(side):
+        drift = {"t": 0}
+
+        def measure(fn):
+            drift["t"] += 1
+            return fn() * (1.0 + (drift["t"] % 7))  # a wandering card
+
+        stats = side.timing.adjacent_ratio_stats(measure, lambda: 1.0, {"fast": lambda: 0.5}, reps=5)
+        med, lo, hi, ratios = stats["fast"]
+        assert len(ratios) == 5
+        assert lo <= med <= hi
+        assert 1.0 < med
+        return stats
+
+    hold(SIDES, side, script)
+
+
+@BY_SIDE
+def test_adjacent_ratio_stats_exact_when_drift_is_slow(side):
+    def script(side):
+        rep_scale = iter([1.0, 1.0, 3.0, 3.0, 10.0, 10.0])
+        stats = side.timing.adjacent_ratio_stats(lambda fn: fn() * next(rep_scale), lambda: 1.0,
+                                                 {"fast": lambda: 0.25}, reps=3)
+        med, lo, hi, ratios = stats["fast"]
+        assert ratios == [4.0, 4.0, 4.0]
+        assert (med, lo, hi) == (4.0, 4.0, 4.0)
+        return stats
+
+    hold(SIDES, side, script)
+
+
+@BY_SIDE
+def test_adjacent_ratio_stats_transform_hook(side):
+    def script(side):
+        def transform(key, b, c):
+            assert key == "k"
+            return (b / c) * 0.5  # a per-FLOP normalisation
+
+        stats = side.timing.adjacent_ratio_stats(lambda fn: fn(), lambda: 2.0, {"k": lambda: 1.0}, reps=2,
+                                                 transform=transform)
+        assert stats["k"][3] == [1.0, 1.0]
+        return stats
+
+    hold(SIDES, side, script)

@@ -6,7 +6,8 @@ reconcilers) and a per-node kubelet, and print one JSON line
 The port's copy of ``tests/scripts/fleet_converge.py``, with its flags,
 its defaults and its output keys. Its modes:
 
-* plain convergence, then five steady passes against the warm cache
+* plain convergence, then, once ``settle_quiesced`` has brought the
+  halted world to rest, five steady passes against the warm cache
   (``apiserver_requests_per_reconcile`` must stay at most 2) and five
   traced ones (``trace_overhead_pct``);
 * ``--pods``: unrelated non-GPU pods seeded first, which the scoped Pod
@@ -106,6 +107,32 @@ def _peak_rss_mib() -> float:
     import resource
 
     return round(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0, 1)
+
+
+def settle_quiesced(client, ns: str, nodes, cache_client, reconciler, sim, max_passes: int = 10) -> None:
+    """Bring a world whose kubelet was halted to rest before a steady
+    measurement: one kubelet sweep to its end, the stopped manager's
+    cache repaired from live LISTs, then reconcile passes until one makes
+    no request (at most ``max_passes``).
+
+    The halt can abort a sweep after it deleted the pods of preempted
+    nodes and before it re-stamped a DaemonSet's status. The status then
+    still counts those nodes, with no DaemonSet controller left to
+    correct it, and every later pass reads that DaemonSet as not ready.
+    ``mgr.stop()`` also froze the informers with whatever events were
+    still on the wire."""
+    simulate_kubelet_nodes(client, ns, nodes)
+    resync_fn = getattr(cache_client, "resync_once", None)
+    if callable(resync_fn):
+        resync_fn(ignore_stop=True)
+    for _ in range(max_passes):
+        before = sim.requests_total()
+        try:
+            reconciler.reconcile()
+        except Exception:
+            break
+        if sim.requests_total() == before:
+            break
 
 
 def _seed_bulk_pods(client, count: int, namespaces: int) -> None:
@@ -957,6 +984,7 @@ def main(argv=None) -> int:
         kubelet_thread.join(timeout=60)
         mgr.stop()
         time.sleep(0.5)
+        settle_quiesced(client, ns, nodes, mgr.client, reconciler, server.sim)
         before = server.sim.requests_total()
         steady_ok = True
         rounds = 5
@@ -1015,23 +1043,9 @@ def main(argv=None) -> int:
         warm_ok = True
         if args.warm_restart:
             # the claim is "unchanged inputs, zero re-derivation", so first
-            # let the cold operator settle (a kubelet sweep aborted by the
-            # halt can leave trailing drift that a pass or two repairs) and
-            # re-save the journal against the settled world. mgr.stop()
-            # froze the informer watch threads with whatever events were
-            # still on the wire: repair the cache from live LISTs first so
-            # the settle passes converge the real world
-            resync_fn = getattr(mgr.client, "resync_once", None)
-            if callable(resync_fn):
-                resync_fn(ignore_stop=True)
-            for _ in range(10):
-                before_q = server.sim.requests_total()
-                try:
-                    reconciler.reconcile()
-                except Exception:
-                    break
-                if server.sim.requests_total() == before_q:
-                    break
+            # let the cold operator settle and re-save the journal against
+            # the settled world
+            settle_quiesced(client, ns, nodes, mgr.client, reconciler, server.sim)
             save_warm = getattr(reconciler, "save_warm_state", None)
             if callable(save_warm):
                 save_warm()
