@@ -62,7 +62,15 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    before and read
    just after, run ``run_experiment`` with all three modes at 8192 x 8
    heads, each of K7a-c launched; then time K7a-c;
-5. (after 3c, before 4) the multi-device path on every card
+3d. the flash gate: one ``vs_matmul`` reading at the shipped blocks
+   (``fa_gate.measure_vs_matmul``: K3's probe, best of 3, over an adjacent
+   matmul chain), which ``flashattn_gate_ok(..., on_card=True)`` must
+   pass; then ``python -m tpu_operator_torch.workloads.fa_gate_selftest``
+   as a subprocess, which must exit 0 with ``gate_tripped=True`` at the
+   degraded blocks; the launch counts, set to 0 just before the reading
+   and read just after it, and the self-test's own, must show K3 and no
+   other kernel of the package; the two ratios and the floor are logged;
+5. (after 9, beside 4 and 10-14) the multi-device path on every card
    (``torch.cuda.device_count()`` ranks, NCCL, one process a card):
    ``run_burnin`` (10 steps), ``run_ring_probe``, ``run_ringattn``,
    ``run_pipeline`` and ``run_moe`` at the validator's full widths, each
@@ -70,7 +78,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    time, then the burn-in's seconds a step, the card's name and power
    limit and ``entry.dryrun_multichip``; this path launches none of
    K1-K7c;
-6. (after 5, before 4) the node agents: the chip table
+6. (after 3d) the node agents: the chip table
    (``native/gpuinfo.py``), which must come from NVML and agree with torch
    (by PCI bus id where both give one, else by count) and with
    ``nvidia-smi`` (name, power limit); ``device_probe_path`` on every
@@ -85,7 +93,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    ``slice_gang_pod`` builds; a gang of two with two or more cards); one
    pass of each ``NodeMetrics`` watcher; this path launches none of
    K1-K7c;
-7. (after 6, before 4) the card advertised to the kubelet, on every card:
+7. (after 6) the card advertised to the kubelet, on every card:
    ``runtime_wire.wire_once`` writes the CDI spec from NVML's chip table
    and the ``toolkit`` CLI component passes on it; the device plugin
    (over gRPC on a unix socket where grpc and protobuf import, else
@@ -104,7 +112,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    product, count, memory and driver-version labels equal ``nvidia-smi``'s; the plugin's
    first-advertisement time, each ``Allocate`` round trip and the phase's
    wall time are logged; this path launches none of K1-K7c;
-8. (after 7, before 4) the node's partition and telemetry operands, on
+8. (after 7) the node's partition and telemetry operands, on
    every card, in a temporary directory: the slice manager on a node that
    feature discovery labelled from NVML's chip table (the port's
    ``FakeClient``, whose stale write answers 409), one slice a card
@@ -144,7 +152,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    ``tensorcore_util`` from the sampler and ``duty_cycle`` above 0 from
    NVML (every series' source printed); the /json GET's ms and the
    phase's wall time logged; this path launches none of K1-K7c;
-10. (after 9, before 4) the control plane's foundation, under a
+10. (after 9, beside 4 and 5) the control plane's foundation, under a
    watchdog of ``CONTROL_PLANE_TIMEOUT_S``: ``python -m
    tpu_operator_torch.cfg generate crd`` gives the generated CRD and
    ``validate clusterpolicy`` passes the port's sample and fails (rc 1,
@@ -166,7 +174,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    the CR admission, paged-LIST, watch-event and phase times and the
    card's name and power limit are logged; grpc is required (no plain-data
    fallback); this path launches none of K1-K7c;
-11. (after 10, before 4) the control plane's read and write paths, under a
+11. (after 10, beside 4 and 5) the control plane's read and write paths, under a
    watchdog of ``READ_WRITE_TIMEOUT_S``, on one KubeSim over loopback:
    ``testing.seed_cluster`` writes the port's CRD and sample, the card's
    node (feature discovery's labels) joins ``FLEET_NODES - 1`` simulated
@@ -192,7 +200,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    ``prometheus_client`` is required) counts the pipeline's queue waits
    and each write verb's round trips; the times and the card's name and
    power limit are logged; this path launches none of K1-K7c;
-12. (after 11, before 4) the state machine on the card's node, under a
+12. (after 11, beside 4 and 5) the state machine on the card's node, under a
    watchdog of ``STATE_MACHINE_TIMEOUT_S``, on one KubeSim over loopback:
    ``testing.seed_cluster`` writes the port's CRD and sample (the other
    H100 variant's driver pinned in ``generationConfigs``), the card's node
@@ -214,7 +222,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    init, label fan-out, passes to READY and steady-pass times and the
    card's name and power limit are logged; this path launches none of
    K1-K7c;
-13. (after 12, before 4) the node FSMs on the card's node, under a
+13. (after 12, beside 4 and 5) the node FSMs on the card's node, under a
    watchdog of ``NODE_FSMS_TIMEOUT_S``, on one KubeSim over loopback with
    ``FSM_FLEET_NODES`` nodes: the card's node (feature discovery's labels
    and the slice labels of a 4-host deployment) is one host of
@@ -246,7 +254,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    client, and every GPU node ends on the layout; the passes and times and
    the card's name and power limit are logged; this path launches none of
    K1-K7c;
-14. (after 13, before 4) the reconcilers on the card's node, under a
+14. (after 13, beside 4 and 5) the reconcilers on the card's node, under a
    watchdog of ``RECONCILERS_TIMEOUT_S``. On a KubeSim with ``FLEET_NODES``
    nodes (the card's node one host of ``slice-card``, ``RECONCILE_SLICES``
    4-host slices of its variant, ``RECONCILE_SOLOS`` single hosts of the
@@ -274,7 +282,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    outside it admitted, with one Warning Event naming the evidence and one
    flight dump; the times and the card's name and power limit are logged;
    this path launches none of K1-K7c;
-15. (after 14, before 4) the operator process on the card's node, under a
+15. (after 14) the operator process on the card's node, under a
    watchdog of ``OPERATOR_TIMEOUT_S``. The shipped ``python -m
    tpu_operator_torch.main --kubesim --simulate-kubelet --once`` exits 0 at
    ``--nodes`` 1 and 256 (its wall time is the port's ``time_to_ready_s``),
@@ -296,7 +304,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    owns both, confirms shard 0 live and runs its full pass with the CR
    READY; the times and the card's name and power limit are logged; this
    path launches none of K1-K7c;
-16. (after 15, before 4) allocation churn and the chaos soak beside the
+16. (after 15) allocation churn and the chaos soak beside the
    card's node, under a watchdog of ``CHURN_TIMEOUT_S``. On a KubeSim of
    ``FLEET_NODES`` nodes, the card's node (the device plugin over the real
    cards serving it) and synthetic H100 NVL hosts of four NVLink-bridged
@@ -318,7 +326,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    with every assertion of the reference's test and no lock-order cycle.
    Rates, latencies, fragmentation and times are logged beside the card's
    name and power limit; this path launches none of K1-K7c;
-17. (after 16, before 4) the static analyser and the two e2e drivers, under
+17. (after 16) the static analyser and the two e2e drivers, under
    a watchdog of ``LINT_E2E_TIMEOUT_S``. ``python -m
    tpu_operator_torch.analysis --repo-root <the script's tree>`` reports 0
    findings with rc 0 twice, byte-identical, and the scan is timed in
@@ -330,7 +338,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    its four parallelism probes on the cards over NCCL, each ``*-ready``
    file ok over every card. The times are logged beside the card's name
    and power limit; this path launches none of K1-K7c;
-18. (after 17, before 4) the reference's fault, remediation, multi-host
+18. (after 17) the reference's fault, remediation, multi-host
    slice, chaos and alert-rule suites with the card's node in the fleet,
    under a watchdog of ``RESILIENCE_TIMEOUT_S``, each scenario on its own
    KubeSim with the device plugin over the real cards serving the card's
@@ -359,7 +367,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    on the card's node reads the card count (``check_alert_names``). The
    times are logged beside the card's name and power limit; this path
    launches none of K1-K7c;
-19. (after 18, before 4) the port's packaging, under a watchdog of
+19. (after 18) the port's packaging, under a watchdog of
    ``PACKAGING_TIMEOUT_S``, as subprocesses of this interpreter against a
    temporary copy of ``tpu_operator_torch/deploy/``: ``python -m
    tpu_operator_torch.cfg validate clusterpolicy|chart|csv|bundle`` each
@@ -376,7 +384,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    ``kubectl`` writes its tarball with ``nodes/node-labels.txt``. Each
    step's time is logged beside the card's name and power limit; this path
    launches none of K1-K7c;
-20. (after 19, before 4) the port's images, under a watchdog of
+20. (after 19) the port's images, under a watchdog of
    ``IMAGES_TIMEOUT_S``, with no ``docker``, on a temporary prefix:
    ``deploy/docker/install.sh --prefix <tmp> --kernels`` as the operator
    image's build stage runs it (no card visible), its native build and
@@ -395,7 +403,7 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    end-to-end.sh`` against stub ``kubectl`` and ``helm``, rc 0 with ``E2E
    PASSED``. Each step's time is logged beside the card's name and power
    limit; this process launches none of K1-K7c;
-21. (after 20, before 4) the port's fleet drivers, under a watchdog of
+21. (after 20) the port's fleet drivers, under a watchdog of
    ``FLEET_DRIVERS_TIMEOUT_S``, each as ``python -m
    tpu_operator_torch.e2e.<driver>`` one after another
    (``FLEET_DRIVER_RUNS``, ``bench.py``'s fleet runs cut in size):
@@ -410,10 +418,12 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
    power limit; this process launches none of K1-K7c;
 4. run the validator CLI for the same three components and the five
    multi-device ones as subprocesses, each writing its status file into a
-   temporary directory.
+   temporary directory; in a thread beside phase 5's and beside phases
+   10-14 (in this process, no kernel launched), joined before phase 15.
 
 Then it prints one ``kernels`` JSON line, each kernel's launches read from
-the path that runs it (K1-K3 phase 3, K4-K6b phase 3b, K7a-c phase 3c).
+the path that runs it (K1-K3 phase 3, K4-K6b phase 3b, K7a-c phase 3c;
+phase 3d's K3 launches are logged with the phase).
 
 The last line of standard output is one JSON object naming the device.
 Without a CUDA device, or without the ``tpu_operator_torch`` package
@@ -422,6 +432,7 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import faulthandler
 import glob
@@ -1181,6 +1192,52 @@ def phase_structural(partial: dict) -> list:
     del q, k, v
     torch.cuda.empty_cache()
     return rows
+
+
+SELFTEST_TIMEOUT_S = 180  # the gate self-test's subprocess
+SELFTEST_FIELDS = re.compile(r"vs_matmul=(\S+) floor=\S+ gate_tripped=(\w+) launches=(\{.*\})")
+
+
+def phase_flash_gate() -> None:
+    """Phase 3d: the shipped point's ``vs_matmul`` through the gate, then
+    the gate's self-test as a subprocess; K3 is the only kernel either
+    launches."""
+    from tpu_operator_torch import _build
+    from tpu_operator_torch.workloads import fa_gate
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    healthy = fa_gate.measure_vs_matmul(*fa_gate.SHIPPED_BLOCKS)
+    torch.cuda.synchronize()
+    launches = {name: n for name, n in _build.launches.items() if n}
+    floor = fa_gate.gate_floor()
+    log(f"flash gate, shipped {fa_gate.SHIPPED_BLOCKS}: {json.dumps(healthy)}; launches {launches}")
+    proc = subprocess.run([sys.executable, "-m", "tpu_operator_torch.workloads.fa_gate_selftest"],
+                          capture_output=True, text=True, timeout=SELFTEST_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    log(f"fa_gate_selftest rc={proc.returncode}: {proc.stdout.strip()}")
+    m = SELFTEST_FIELDS.search(proc.stdout)
+    nums = {
+        "shipped_vs_matmul": healthy["vs_matmul"],
+        "degraded_vs_matmul": float(m.group(1)) if m else None,
+        "floor": floor,
+        "gate_tripped": m is not None and m.group(2) == "True",
+        "k3_launches": launches.get("flash_fwd", 0),
+        "selftest_launches": json.loads(m.group(3)) if m else {},
+        "phase_s": time.perf_counter() - t0,
+    }
+    log(f"flash gate on: {_card_line()}; {json.dumps(nums)}")
+    if (healthy["block_q"], healthy["block_k"]) != fa_gate.SHIPPED_BLOCKS:
+        raise RuntimeError(f"the shipped reading ran {healthy['block_q']}/{healthy['block_k']}")
+    if not fa_gate.flashattn_gate_ok(healthy["vs_matmul"], on_card=True):
+        raise RuntimeError(f"the shipped point fails the flash gate: vs_matmul {healthy['vs_matmul']} "
+                           f"under floor {floor} ({healthy['fa_error']} {healthy['mm_error']})")
+    if proc.returncode != 0 or not nums["gate_tripped"]:
+        raise RuntimeError(f"the gate self-test did not trip: rc={proc.returncode}\n{proc.stdout[-2000:]}\n"
+                           f"{proc.stderr[-2000:]}")
+    for where, counted in (("the shipped reading", launches), ("the self-test", nums["selftest_launches"])):
+        if set(counted) != {"flash_fwd"}:
+            raise RuntimeError(f"{where} launched {counted}, not K3 (flash_fwd) alone")
 
 
 def burnin_step_seconds(world, steps: int) -> float:
@@ -6370,14 +6427,16 @@ def phase_fleet_drivers() -> None:
         f"phase 21 {time.perf_counter() - t_phase:.1f} s")
 
 
-def phase_cli(chain) -> None:
+def phase_cli(chain, env) -> None:
+    """Phase 4: each component of ``chain`` through the validator CLI, a
+    subprocess with the environment ``env``."""
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as status_dir:
         for component, args, status_file in chain:
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, "-m", "tpu_operator_torch.validator",
                  "--component", component, *args, "--output-dir", status_dir],
-                capture_output=True, text=True, timeout=400,
+                capture_output=True, text=True, timeout=400, env=env,
             )
             path = os.path.join(status_dir, status_file)
             if proc.returncode != 0 or not os.path.exists(path):
@@ -6405,16 +6464,25 @@ def main() -> int:
     for k in kernels:
         k["launches"] = (attribution if k["name"] in variant_kernels else launches)[k["name"]]
     kernels += phase_structural(partial)
-    phase_multidevice()
+    phase_flash_gate()
     phase_node_agents()
     phase_device_stack()
     phase_node_operands()
     phase_native()
-    phase_control_plane()
-    phase_control_plane_rw()
-    phase_state_machine()
-    phase_node_fsms()
-    phase_reconcilers()
+    # phases 5 and 4 (their worlds and CLI subprocesses on the card) run
+    # beside phases 10-14, which launch nothing on the card and run in
+    # this process; the CLI gets the environment as it stands now, before
+    # those phases set the operator's namespace
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        beside = [pool.submit(phase_multidevice),
+                  pool.submit(phase_cli, CLI_CHAIN + MULTIDEVICE_CLI, dict(os.environ))]
+        phase_control_plane()
+        phase_control_plane_rw()
+        phase_state_machine()
+        phase_node_fsms()
+        phase_reconcilers()
+        for phase in beside:
+            phase.result()
     phase_operator()
     phase_churn()
     phase_lint_e2e()
@@ -6422,7 +6490,6 @@ def main() -> int:
     phase_packaging()
     phase_images()
     phase_fleet_drivers()
-    phase_cli(CLI_CHAIN + MULTIDEVICE_CLI)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -327,3 +327,54 @@ def test_slice_verdict_echo_keys_match_the_reference():
         assert verdict == want
         assert {str((delta.NODE_KIND, NODE)), str((delta.SLICE_KIND, NODE))} <= set(keys)
     assert port[2] == []  # once the mirror holds the verdict, a repeat is dropped
+
+
+class ForeignSliceOwner:
+    """The shard view of a replica that holds the full pass and every
+    slice but ``foreign``'s, which another replica owns."""
+
+    def __init__(self, foreign):
+        self.foreign = foreign
+
+    def owns_full_pass(self):
+        return True
+
+    def confirm_full_pass_owner(self):
+        return True
+
+    def owns_slice(self, sid):
+        return sid != self.foreign
+
+    covers_slice = owns_slice
+    owns_node_name = owns_slice
+
+
+def test_full_pass_keeps_the_owners_ingested_verdict():
+    """A full pass whose own view of another replica's slice lags the
+    owner's verdict (no validator pod seen there yet) no longer drops the
+    verdict it ingested: ``status.slices`` keeps the slice ready until
+    the owner says otherwise. The reference's ``note_full_pass`` clears
+    the ingested verdicts and its status write puts the slice back among
+    the degraded, where it stays until the next full pass; the sharded
+    leader-kill run then counts the new owner's correcting write."""
+    from tests.test_torch_reconciler import World
+
+    def script(w):
+        world(w, ("fleet-a", "fleet-b"))
+        converge(w)
+        w.create(make_validator_pod("fleet-a", True, NS))
+        w.rec.reconcile()
+        w.rec.shard_state = ForeignSliceOwner("fleet-b")
+        seen = [w.cp()["status"]["slices"]]
+        w.rec.delta.ingest_foreign_verdict("fleet-b", True)
+        seen.append(w.cp()["status"]["slices"])
+        w.rec.reconcile()
+        seen.append(w.cp()["status"]["slices"])
+        w.rec.delta.ingest_foreign_verdict("fleet-b", False)
+        seen.append(w.cp()["status"]["slices"])
+        return seen
+
+    degraded = {"total": 2, "ready": 1, "degraded": ["fleet-b"]}
+    ready = {"total": 2, "ready": 2}
+    assert script(World(SIDES["reference"])) == [degraded, ready, degraded, degraded]
+    assert script(World(SIDES["port"])) == [degraded, ready, ready, degraded]

@@ -41,6 +41,9 @@ TIMED = ("gpu_metricsd_collections_total", "gpu_metricsd_last_collect_ts_seconds
          "gpu_metricsd_sample_age_seconds")
 SAMPLE = {"tensorcore_util": 42.5, "duty_cycle": 99.0, "hbm_used": 123456.0, "hbm_total": 1.0e9}
 WAIT_S = 5.0
+# both hostengines showing a sample: a poll that returns as soon as they do,
+# bounded for a loaded host (parallel test workers)
+SETTLE_S = 60.0
 
 
 @pytest.fixture(scope="module")
@@ -119,8 +122,9 @@ def write_sample(path, payload):
 
 
 def settled(pair, want: str) -> tuple:
-    """Both hostengines' /metrics once each shows ``want``."""
-    deadline = time.time() + WAIT_S
+    """Both hostengines' /metrics once each shows ``want`` (or
+    ``SETTLE_S`` has passed)."""
+    deadline = time.time() + SETTLE_S
     while True:
         texts = get(pair["ref"], "/metrics"), get(pair["port"], "/metrics")
         if want in texts[0] and want.replace("tpu_", "gpu_") in texts[1] or time.time() > deadline:

@@ -44,9 +44,7 @@ PARITY = {
     "test_analysis.py": held("test_torch_analysis.py"),
     "test_apply.py": held("test_torch_apply.py", "test_torch_warm.py", "test_torch_shard_replica.py"),
     "test_bench_gate.py": held(
-        "test_torch_timing.py",
-        test_gate_trips_below_floor_and_on_missing_ratio=BENCH,
-        test_gate_floor_env_override=BENCH,
+        "test_torch_timing.py", "test_torch_fa_gate.py",
         test_fleet_pass_gate_trips_on_regression_and_missing=BENCH,
         test_fleet_pass_gate_ceiling_env_override=BENCH),
     "test_cache.py": held("test_torch_cache.py", "test_torch_cache_wire.py"),

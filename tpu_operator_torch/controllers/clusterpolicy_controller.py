@@ -749,12 +749,9 @@ class ClusterPolicyReconciler:
         status = cp_obj.setdefault("status", {})
         slices = None
         if slice_summary is not None:
-            slices = {
-                "total": slice_summary.total,
-                "ready": slice_summary.ready,
-            }
-            if slice_summary.degraded:
-                slices["degraded"] = slice_summary.degraded
+            # sharded: the slices other replicas own at their verdicts
+            # (the delta path's block), not this pass's view of them
+            slices = self.delta.slices_block(slice_summary.slices.values())
         errored_block = [
             {"state": n, "error": e} for n, e in (errored or ())
         ]

@@ -57,6 +57,14 @@ What the port decides here (the reconcilers' decisions, also in
   reference's does. Sharded mode (``_owns``, ``invalidate_context``,
   ``ingest_foreign_verdict``, ``EventRouter._shard_allows``) is ported
   whole and idle while ``shard_state`` is ``None``.
+* One repair of the sharded mode: a full pass's seed keeps the verdicts
+  ingested from the replicas that own the other slices (the reference's
+  ``note_full_pass`` clears them), and the full pass's own status write
+  folds them in (``slices_block``). The shard-0 owner's aggregate reads
+  its own view of the validator pods, which can lag the owner's; a
+  verdict ingested while a pass ran was dropped, no later event
+  restored it, and ``status.slices`` kept a ready slice degraded until
+  the next full pass.
 * The imports of ``clusterpolicy_controller`` stay lazy: that module
   builds this one's ``DeltaReconciler``.
 """
@@ -116,6 +124,18 @@ def _labels(obj: Optional[dict]) -> dict:
     return ((obj or {}).get("metadata", {}).get("labels") or {}) if obj else {}
 
 
+def _slices_block(infos, foreign: Dict[str, bool]) -> dict:
+    """``status.slices``: the total, the ready count and the degraded
+    slice ids of ``infos``, a verdict in ``foreign`` standing for the
+    slice's own."""
+    infos = list(infos)
+    degraded = sorted(s.slice_id for s in infos if not foreign.get(s.slice_id, s.ready))
+    block = {"total": len(infos), "ready": len(infos) - len(degraded)}
+    if degraded:
+        block["degraded"] = degraded
+    return block
+
+
 class DeltaReconciler:
     """Targeted sub-reconciles riding the keyed workqueue.
 
@@ -145,7 +165,8 @@ class DeltaReconciler:
         # sid -> ready: verdicts INGESTED from other replicas' label
         # writes (sharded mode, full-pass owner only) — status.slices
         # stays event-fresh for shards this replica doesn't recompute;
-        # cleared whenever a full aggregation re-seeds the mirror
+        # the latest verdict of each slice another replica owns, kept
+        # across full passes (the owner is the authority for its slice)
         self._foreign: Dict[str, bool] = {}
         self._have_full = False
         # sub-reconciles dispatched for keys this replica no longer
@@ -184,7 +205,14 @@ class DeltaReconciler:
             return
         with self._lock:
             self._slices = dict(slice_summary.slices)
-            self._foreign.clear()
+            # an owner's verdict ingested while this pass ran is newer
+            # than the pass's view of that slice: keep every verdict of a
+            # slice that still exists and another replica owns
+            self._foreign = {
+                sid: ready
+                for sid, ready in self._foreign.items()
+                if sid in self._slices and sm is not None and not sm.owns_slice(sid)
+            }
             self._have_full = True
 
     # ------------------------------------------------------------------
@@ -245,6 +273,13 @@ class DeltaReconciler:
             enq()
         else:
             self._publish_status()
+
+    def slices_block(self, infos) -> dict:
+        """The ``status.slices`` block of ``infos`` (a full pass's
+        summary), each slice another replica owns at its ingested
+        verdict."""
+        with self._lock:
+            return _slices_block(infos, self._foreign)
 
     def publish_status_now(self):
         """Keyed-queue entry point for the coalesced status publish."""
@@ -474,21 +509,7 @@ class DeltaReconciler:
             # contribution — the owner ingests them from the watch
             return
         with self._lock:
-            infos = list(self._slices.values())
-            foreign = dict(self._foreign)
-            block = {
-                "total": len(infos),
-                "ready": sum(
-                    1 for s in infos if foreign.get(s.slice_id, s.ready)
-                ),
-            }
-            degraded = sorted(
-                s.slice_id
-                for s in infos
-                if not foreign.get(s.slice_id, s.ready)
-            )
-            if degraded:
-                block["degraded"] = degraded
+            block = _slices_block(self._slices.values(), self._foreign)
         metrics = self.rec.metrics
         if metrics and getattr(metrics, "slices_total", None):
             metrics.slices_total.set(block["total"])
