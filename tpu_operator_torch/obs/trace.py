@@ -25,6 +25,11 @@ Export is Chrome trace-event JSON (``{"traceEvents": [...]}``), loadable
 in Perfetto / ``chrome://tracing``. Completed spans also feed the flight
 recorder's span ring (``obs/flight.py``) so a post-mortem dump carries
 the recent causal timeline.
+
+The validator's card probes open their spans through
+``workloads/timing.py::span``, which also records while a torch profiler
+runs (``Tracer.span``); a reader takes the buffered records with their
+time base from ``Tracer.snapshot``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 _TL = threading.local()
 
@@ -113,6 +118,18 @@ class _SpanHandle:
         return False
 
 
+class Snapshot(NamedTuple):
+    """The tracer's buffered records, oldest finished first. A record's
+    start is ``base_ns + ts * 1000`` on ``time.monotonic_ns``'s clock
+    (``ts`` and ``dur`` are whole microseconds); ``dropped`` counts the
+    records the full ring let go since the last reset, the oldest finished
+    first."""
+
+    base_ns: int
+    records: List[Dict[str, Any]]
+    dropped: int
+
+
 class Tracer:
     """Process-global span collector. ``enabled`` is the ONE branch the
     disabled fast path pays."""
@@ -159,6 +176,17 @@ class Tracer:
             self._pass_mark = {}
             self.last_pass = {}
             self.spans_total = 0
+
+    def span(self, _span_name: str, **attrs: Any) -> _SpanHandle:
+        """Open a span on this tracer whether or not it is enabled, for a
+        caller with a reason of its own to record."""
+        return _SpanHandle(self, _span_name, attrs)
+
+    def snapshot(self) -> Snapshot:
+        """The buffered records with their time base (``Snapshot``)."""
+        with self._lock:
+            records = list(self._spans)
+            return Snapshot(self._base_ns, records, self.spans_total - len(records))
 
     def _next_id(self) -> int:
         # races only produce duplicate display ids, never corruption; a

@@ -294,22 +294,25 @@ def validate_cuda(
     ``with_workload`` spawns the matmul pod (crossing the API server) and
     records the pod's outcome only, no perf fields; otherwise the matmul
     chain runs in-process and the status file records achieved TFLOPS."""
-    if with_workload:
-        if client is None:
-            raise ValidationError("cuda workload validation needs a k8s client")
-        from tpu_operator_torch.validator import workload_pods
+    from tpu_operator_torch.workloads.timing import span
 
-        pod = workload_pods.cuda_workload_pod(node_name, namespace)
-        result = workload_pods.run_to_completion(client, pod)
-        info = {"workload": pod["metadata"]["name"], "result": result}
-    else:
-        from tpu_operator_torch.workloads.matmul import run_matmul_validation
+    with span("validator.cuda", size=size):
+        if with_workload:
+            if client is None:
+                raise ValidationError("cuda workload validation needs a k8s client")
+            from tpu_operator_torch.validator import workload_pods
 
-        res = run_matmul_validation(size=size, device=_device(expect_gpu))
-        if not res.ok:
-            raise ValidationError(f"cuda matmul failed: {res.error}")
-        info = res.to_dict()
-    status.write(consts.STATUS_FILE_CUDA, info)
+            pod = workload_pods.cuda_workload_pod(node_name, namespace)
+            result = workload_pods.run_to_completion(client, pod)
+            info = {"workload": pod["metadata"]["name"], "result": result}
+        else:
+            from tpu_operator_torch.workloads.matmul import run_matmul_validation
+
+            res = run_matmul_validation(size=size, device=_device(expect_gpu))
+            if not res.ok:
+                raise ValidationError(f"cuda matmul failed: {res.error}")
+            info = res.to_dict()
+        status.write(consts.STATUS_FILE_CUDA, info)
     return info
 
 
@@ -323,14 +326,16 @@ def validate_flashattn(
     (running max + denominator in f32, bf16 tensor-core tiles), checked
     against naive full attention in f32."""
     from tpu_operator_torch.workloads.flashattn import run_flashattn_probe
+    from tpu_operator_torch.workloads.timing import span
 
-    res = run_flashattn_probe(seq=seq, heads=heads, device=_device(expect_gpu))
-    if not res.ok:
-        raise ValidationError(
-            f"flash-attention probe failed: {res.error or 'divergence'}"
-        )
-    status.write(consts.STATUS_FILE_FLASHATTN, res.to_dict())
-    return res.to_dict()
+    with span("validator.flashattn", seq=seq, heads=heads):
+        res = run_flashattn_probe(seq=seq, heads=heads, device=_device(expect_gpu))
+        if not res.ok:
+            raise ValidationError(
+                f"flash-attention probe failed: {res.error or 'divergence'}"
+            )
+        status.write(consts.STATUS_FILE_FLASHATTN, res.to_dict())
+        return res.to_dict()
 
 
 def validate_membw(
@@ -343,30 +348,32 @@ def validate_membw(
     bulk-copy kernel and the elementwise stream (``workloads/membw.py``),
     gated against the card's datasheet rate."""
     from tpu_operator_torch.workloads.membw import run_membw_probe
+    from tpu_operator_torch.workloads.timing import span
 
     if size_mb <= 0:
         # the CPU path only checks semantics: keep its buffer tiny
         size_mb = 2048 if expect_gpu else 8
-    res = run_membw_probe(size_mb=size_mb, device=_device(expect_gpu))
-    if not res.ok:
-        raise ValidationError(f"membw probe failed: {res.error}")
-    info = res.to_dict()
-    if expect_gpu and res.utilization is None:
-        # unknown card: no spec number to gate against — record loudly
-        # rather than silently passing a possibly-sick stack
-        info["utilization_gate"] = "skipped: unknown generation"
-        log.warning(
-            "membw: no HBM spec for device_kind=%r; %.0f GB/s NOT gated",
-            res.device_kind,
-            res.gbps,
-        )
-    elif expect_gpu and res.utilization < min_utilization:
-        raise ValidationError(
-            f"HBM bandwidth {res.gbps:.0f} GB/s is below "
-            f"{min_utilization:.0%} of the {res.peak_gbps:.0f} GB/s spec "
-            f"for {res.device_kind}"
-        )
-    status.write(consts.STATUS_FILE_MEMBW, info)
+    with span("validator.membw", size_mb=size_mb):
+        res = run_membw_probe(size_mb=size_mb, device=_device(expect_gpu))
+        if not res.ok:
+            raise ValidationError(f"membw probe failed: {res.error}")
+        info = res.to_dict()
+        if expect_gpu and res.utilization is None:
+            # unknown card: no spec number to gate against — record loudly
+            # rather than silently passing a possibly-sick stack
+            info["utilization_gate"] = "skipped: unknown generation"
+            log.warning(
+                "membw: no HBM spec for device_kind=%r; %.0f GB/s NOT gated",
+                res.device_kind,
+                res.gbps,
+            )
+        elif expect_gpu and res.utilization < min_utilization:
+            raise ValidationError(
+                f"HBM bandwidth {res.gbps:.0f} GB/s is below "
+                f"{min_utilization:.0%} of the {res.peak_gbps:.0f} GB/s spec "
+                f"for {res.device_kind}"
+            )
+        status.write(consts.STATUS_FILE_MEMBW, info)
     return info
 
 

@@ -10,6 +10,12 @@ names (``--driver-root``/``DRIVER_ROOT`` for ``--libtpu-install-dir``).
 Exit 0 when the component passed and wrote its status file, 1 when it
 failed. The host checks read files and import no ``torch``; ``--allow-cpu``
 concerns only the compute components.
+
+``--trace-out PATH`` enables the tracer (``obs/trace.py``) and writes its
+span buffer to ``PATH`` as Chrome trace-event JSON (Perfetto loads it) when
+the component ends, passed or failed: a compute component's spans show its
+probe's phases (inputs, build, check, the timed chains and each timed
+round), as an init container ran them.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import logging
 import os
 
 from tpu_operator_torch import consts
+from tpu_operator_torch.obs import trace
 from tpu_operator_torch.validator import components as comp
 from tpu_operator_torch.validator.components import StatusFiles
 
@@ -149,6 +156,14 @@ def build_parser():
         action="store_true",
         help="dev mode: run the compute components on the CPU when no GPU is visible",
     )
+    p.add_argument(
+        "--trace-out",
+        default=None,
+        metavar="PATH",
+        help="enable tracing (obs/trace.py) and write the span buffer as Chrome "
+        "trace-event JSON (Perfetto-loadable) to PATH when the component ends: "
+        "the probes' phases and timed rounds",
+    )
     return p
 
 
@@ -174,6 +189,21 @@ def main(argv=None) -> int:
     )
     log = logging.getLogger("tpu-validator")
     args = build_parser().parse_args(argv)
+    if args.trace_out:
+        trace.enable()
+    try:
+        return _run(args, log)
+    finally:
+        if args.trace_out:
+            try:
+                n = trace.TRACER.export_chrome(args.trace_out)
+                log.info("trace exported: %d span(s) -> %s", n, args.trace_out)
+            except OSError:
+                log.exception("trace export failed")
+
+
+def _run(args, log) -> int:
+    """The component ``args`` names; 0 when it passed, 1 when it failed."""
     status = StatusFiles(args.output_dir)
     expect_gpu = not args.allow_cpu
     try:

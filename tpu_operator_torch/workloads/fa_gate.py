@@ -65,6 +65,7 @@ from typing import Optional
 
 from tpu_operator_torch.workloads.flashattn import card_blocks, run_flashattn_probe
 from tpu_operator_torch.workloads.matmul import run_matmul_validation
+from tpu_operator_torch.workloads.timing import span
 
 FLOOR_ENV = "BENCH_FLASHATTN_VS_MATMUL_FLOOR"
 
@@ -108,10 +109,13 @@ def measure_vs_matmul(block_q: Optional[int] = None, block_k: Optional[int] = No
     ``fa_tflops_performed`` its performed one), ``vs_matmul`` and
     ``vs_matmul_performed`` (``None`` where a probe or the matmul failed)
     and the best probe's and the matmul's errors."""
-    runs = [run_flashattn_probe(seq=SEQ, heads=HEADS, block_q=block_q, block_k=block_k, device=device)
-            for _ in range(PROBE_RUNS)]
-    fa = max(runs, key=lambda r: r.tflops_effective if r.ok else -1.0)
-    mm = run_matmul_validation(size=MATMUL_SIZE, depth=MATMUL_DEPTH, iters=MATMUL_ITERS, device=device)
+    with span("gate.reading", seq=SEQ, heads=HEADS, block_q=block_q, block_k=block_k):
+        runs = [run_flashattn_probe(seq=SEQ, heads=HEADS, block_q=block_q, block_k=block_k,
+                                    device=device)
+                for _ in range(PROBE_RUNS)]
+        fa = max(runs, key=lambda r: r.tflops_effective if r.ok else -1.0)
+        mm = run_matmul_validation(size=MATMUL_SIZE, depth=MATMUL_DEPTH, iters=MATMUL_ITERS,
+                                   device=device)
     ok = fa.ok and mm.ok and bool(mm.tflops)
     return {
         "block_q": fa.block_q if fa.ok else block_q,

@@ -44,7 +44,7 @@ import torch
 from tpu_operator_torch import _build
 from tpu_operator_torch.device import device_kind, resolve_device
 from tpu_operator_torch.workloads.matmul import device_generation
-from tpu_operator_torch.workloads.timing import chain_per_iter_seconds
+from tpu_operator_torch.workloads.timing import chain_per_iter_seconds, span
 from tpu_operator_torch.workloads.topology import PEAK_BF16_TFLOPS
 
 LANES = 128  # head_dim the kernel takes
@@ -466,22 +466,27 @@ def run_flashattn_probe(
         on_gpu = dev.type == "cuda"
         bq, bk = default_blocks(seq, dev, block_q, block_k)
 
-        gen = torch.Generator(device=dev).manual_seed(11)
-        shape = (heads, seq, head_dim)
-        q, k, v = (
-            torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
-            for _ in range(3)
-        )
-
-        flash = make_flash_fn(seq, heads, head_dim, bq, bk, causal, variant=variant)
-        out = flash(q, k, v)
-        ref = reference_attention(q, k, v, causal)
-        max_err = float((out.float() - ref).abs().max())
-        del ref
-        if not max_err < tol:
-            raise RuntimeError(
-                f"flash attention diverged from the oracle: max_err={max_err}"
+        widths = {"seq": seq, "heads": heads, "block_q": bq, "block_k": bk}
+        with span("probe.flash.inputs", **widths):
+            gen = torch.Generator(device=dev).manual_seed(11)
+            shape = (heads, seq, head_dim)
+            q, k, v = (
+                torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+                for _ in range(3)
             )
+
+        with span("probe.flash.build", **widths):
+            flash = make_flash_fn(seq, heads, head_dim, bq, bk, causal, variant=variant)
+        # K3 once and the f32 oracle, through the max_err fetch
+        with span("probe.flash.check", **widths):
+            out = flash(q, k, v)
+            ref = reference_attention(q, k, v, causal)
+            max_err = float((out.float() - ref).abs().max())
+            del ref
+            if not max_err < tol:
+                raise RuntimeError(
+                    f"flash attention diverged from the oracle: max_err={max_err}"
+                )
 
         flops = (
             causal_flops(seq, heads, head_dim, bq, bk)
@@ -504,7 +509,8 @@ def run_flashattn_probe(
                 torch.cuda.synchronize(dev)
                 return float(x[0, 0, :8].float().sum())
 
-            per_iter = chain_per_iter_seconds(step, q, force, iters)
+            with span("probe.flash.chain", **widths):
+                per_iter = chain_per_iter_seconds(step, q, force, iters)
             tflops = flops / per_iter / 1e12
             tflops_effective = flops_effective / per_iter / 1e12
             elapsed = per_iter * iters

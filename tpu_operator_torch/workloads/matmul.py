@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from tpu_operator_torch.device import device_kind, resolve_device
-from tpu_operator_torch.workloads.timing import chain_per_iter_seconds
+from tpu_operator_torch.workloads.timing import chain_per_iter_seconds, span
 from tpu_operator_torch.workloads.topology import PEAK_BF16_TFLOPS, device_generation
 
 
@@ -91,21 +91,24 @@ def run_matmul_validation(
     try:
         # the correctness slice compares with an f32 product: keep TF32 out
         torch.backends.cuda.matmul.allow_tf32 = False
-        fn, (a, b) = make_matmul_step(size=size, depth=depth, device=dev)
+        with span("probe.matmul.inputs", size=size):
+            fn, (a, b) = make_matmul_step(size=size, depth=depth, device=dev)
         small = 256
-        sa, sb = a[:small, :small], b[:small, :small]
-        want = torch.matmul(sa.float(), sb.float())
-        got = torch.matmul(sa, sb).float()
-        rel = (got - want).abs() / (want.abs() + 1.0)
-        if float(rel.mean()) > 0.02:
-            raise RuntimeError(f"matmul numerics off: mean rel err {float(rel.mean()):.4f}")
+        with span("probe.matmul.check", size=size):
+            sa, sb = a[:small, :small], b[:small, :small]
+            want = torch.matmul(sa.float(), sb.float())
+            got = torch.matmul(sa, sb).float()
+            rel = (got - want).abs() / (want.abs() + 1.0)
+            if float(rel.mean()) > 0.02:
+                raise RuntimeError(f"matmul numerics off: mean rel err {float(rel.mean()):.4f}")
 
         def force(x):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             return float(x.float().sum())
 
-        per_iter = chain_per_iter_seconds(lambda v: fn(v, b), a, force, iters)
+        with span("probe.matmul.chain", size=size):
+            per_iter = chain_per_iter_seconds(lambda v: fn(v, b), a, force, iters)
         elapsed = per_iter * iters
         flops = 2.0 * size * size * size * depth * iters
         tflops = flops / elapsed / 1e12

@@ -35,7 +35,7 @@ import torch
 from tpu_operator_torch import _build
 from tpu_operator_torch.device import device_kind, resolve_device
 from tpu_operator_torch.workloads.matmul import device_generation
-from tpu_operator_torch.workloads.timing import chain_per_iter_seconds, event_ms
+from tpu_operator_torch.workloads.timing import chain_per_iter_seconds, event_ms, span
 from tpu_operator_torch.workloads.topology import PEAK_HBM_GBPS
 
 LANES = 16384  # f32 row width of the probe buffer: 64 KB rows
@@ -219,17 +219,19 @@ def run_membw_probe(
         def stream_fn(v):
             return v + 1.0
 
-        gen = torch.Generator(device=dev).manual_seed(7)
-        x = torch.randn((rows, LANES), generator=gen, device=dev, dtype=torch.float32)
+        with span("probe.membw.inputs", size_mb=size_mb):
+            gen = torch.Generator(device=dev).manual_seed(7)
+            x = torch.randn((rows, LANES), generator=gen, device=dev, dtype=torch.float32)
 
         # integrity: the copy must be bit-exact over the WHOLE buffer — a
         # corner probe would miss corruption in 7 of the 8 chunks; the
         # comparison runs on the device and fetches one boolean
-        y = copy_fn(x)
-        integrity = bool(torch.equal(x, y))
-        del y
-        if not integrity:
-            raise RuntimeError("copy integrity check failed: HBM readback mismatch")
+        with span("probe.membw.integrity", size_mb=size_mb):
+            y = copy_fn(x)
+            integrity = bool(torch.equal(x, y))
+            del y
+            if not integrity:
+                raise RuntimeError("copy integrity check failed: HBM readback mismatch")
 
         def force(v):
             if on_gpu:
@@ -237,9 +239,11 @@ def run_membw_probe(
             return float(v[0, :128].sum())
 
         moved = 2.0 * buf_bytes  # each pass reads + writes the buffer once
-        copy_per_iter = chain_per_iter_seconds(copy_fn, x, force, iters)
+        with span("probe.membw.copy", size_mb=size_mb):
+            copy_per_iter = chain_per_iter_seconds(copy_fn, x, force, iters)
         copy_gbps = moved / copy_per_iter / 1e9
-        stream_per_iter = chain_per_iter_seconds(stream_fn, x, force, iters)
+        with span("probe.membw.stream", size_mb=size_mb):
+            stream_per_iter = chain_per_iter_seconds(stream_fn, x, force, iters)
         stream_gbps = moved / stream_per_iter / 1e9
 
         kind = device_kind(dev)

@@ -15,12 +15,34 @@ Three per-iteration estimators are combined:
 The median of the three is robust to any single measurement being polluted
 by host jitter, and cannot exceed the plain mean by more than the honest
 overhead correction.
+
+``span`` opens the probe layer's spans (``obs/trace.py``): the validator's
+components, the probes' phases and each timed round here. They record
+while the tracer is enabled or a torch profiler is recording; with both
+off a span is one attribute load, one module-attribute read and a branch.
+They are never profiler annotations, which the profiler would put on the
+card's timeline beside the kernels.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Callable
+
+from torch.autograd import profiler as _autograd_profiler
+
+from tpu_operator_torch.obs import trace
+
+TRACER = trace.TRACER
+
+
+def span(_span_name: str, **attrs):
+    """A span of the validator's card path (a context manager): recorded
+    while the tracer is enabled or a torch profiler is recording, else the
+    tracer's shared no-op handle."""
+    if TRACER.enabled or _autograd_profiler._is_profiler_enabled:
+        return TRACER.span(_span_name, **attrs)
+    return trace.NOOP
 
 
 def chain_per_iter_seconds(step: Callable, x, force: Callable, iters: int) -> float:
@@ -33,14 +55,16 @@ def chain_per_iter_seconds(step: Callable, x, force: Callable, iters: int) -> fl
     """
 
     def timed(n: int) -> float:
-        t0 = time.perf_counter()
-        v = x
-        for _ in range(n):
-            v = step(v)
-        force(v)
-        return time.perf_counter() - t0
+        with span("timing.round", n=n):
+            t0 = time.perf_counter()
+            v = x
+            for _ in range(n):
+                v = step(v)
+            force(v)
+            return time.perf_counter() - t0
 
-    force(step(x))  # warmup (kernel build/autotune + first execution)
+    with span("timing.round", n=1, warm=True):
+        force(step(x))  # warmup (kernel build/autotune + first execution)
     t_zero = timed(0)  # pure sync/fetch round-trip
     t_full = timed(iters)
     candidates = [t_full / iters]
