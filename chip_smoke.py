@@ -8,12 +8,15 @@ CUDA toolkit (``nvcc``). Phases, in order; any failure exits non-zero:
 
 1. print the card (``nvidia-smi`` name and power limit), torch and nvcc
    versions, build the kernels from ``tpu_operator_torch/csrc`` (ptxas's
-   registers and spills printed; a ``wgmma`` serialization note, C7515 or
-   C7519, fails), and count ``HGMMA``, ``UTMALDG`` and ``HMMA`` in the SASS
-   of each of the eight instances of the Hopper kernel, K3, K4, K5, K6a,
-   K6b, K7a, K7b and K7c (``cuobjdump``; a missing instance, no HGMMA or
-   UTMALDG, any HMMA in any function of the library, or a ``MUFU.EX2`` in
-   K6a or K6b, whose softmax is gone, fails); then build the native
+   registers and spills printed for each instance by its label; a
+   ``wgmma`` serialization note, C7515, C7519 or another, or an ignored
+   ``setmaxnreg``, C7508, fails), and count ``HGMMA``, ``UTMALDG``, ``HMMA``
+   and ``USETMAXREG`` in the SASS of each of the eight instances of the
+   Hopper kernel, K3, K4, K5, K6a, K6b, K7a, K7b and K7c (``cuobjdump``; a
+   missing instance, no HGMMA or UTMALDG, any HMMA in any function of the
+   library, a ``MUFU.EX2`` in K6a or K6b, whose softmax is gone, or no
+   setmaxnreg in a warp-specialised instance, K3, K5, K6a, K6b or K7b,
+   fails); then build the native
    programs with ``g++`` (``native/build.py``), so that phases 6-9 and
    the CLI read the chip table through ``libgpuinfo.so``;
 2. first, under a watchdog of ``PARTIAL_TILE_TIMEOUT_S`` (a wrong TMA
@@ -494,14 +497,25 @@ WGMMA_INSTANCES = {
 # the stubs, whose SASS must hold no exp: their softmax is gone
 NO_SOFTMAX = ("K6a", "K6b")
 WGMMA_NAME_ARGS = re.compile(r"StepE(\d+)E.*?BodyE(\d+)E")
+# the warp-specialised instances (Body::kOne: K3, K5, K6a, K6b, K7b), whose
+# SASS must move registers between warpgroups: setmaxnreg is USETMAXREG
+WARP_SPECIALISED = tuple(label for (_, body), label in WGMMA_INSTANCES.items() if body == "0")
+SETMAXREG_SASS = "SETMAXREG"
+# ptxas notes that fail the build's check: a serialized wgmma chain
+# (C7515), an injected warpgroup.arrive (C7519), an ignored setmaxnreg
+# (C7508)
+PTXAS_FAULTS = ("(C7515)", "(C7519)", "(C7508)")
+PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+PTXAS_FUNCTION = re.compile(r"in (?:the )?function '([^']+)'")
 # the softmax's instruction mix, logged per instance (static counts in its
 # SASS, every copy of the loop body): exp, f32->bf16x2 packs, f32 and
 # packed bf16 max, packed bf16 fma
 SOFTMAX_OPS = ("MUFU.EX2", "F2FP", "FMNMX", "HMNMX2", "HFMA2")
 # host microseconds a call of the Hopper kernel may spend beyond a launch
 # that encodes no tensor map (K1 on a small buffer), its tensor maps: 5% of
-# K3's ~0.39 ms at the main path's shape, where the host would start to set
-# the pace of a chain of launches
+# K3's ~0.39 ms at the main path's shape when it was set (8% of the
+# warp-specialised K3's ~0.26 ms), where the host would start to set the
+# pace of a chain of launches
 K3_HOST_LIMIT_US = 20.0
 # the variants' shapes: the reference's seq-1024 test at the port's blocks
 VARIANT_TEST_SHAPES = FLASH_TEST_SHAPES + [
@@ -607,20 +621,36 @@ def phase_setup():
     log(f"native programs ({native_build.cxx_version()}) built={native['built']} in "
         f"{native['seconds']:.2f} s: {native['dir']}")
     ptxas = os.path.join(os.path.dirname(info["path"]), "ptxas.log")
-    serialized = []
+    faults = []
     if os.path.exists(ptxas):
         with open(ptxas) as f:
-            for line in f:
-                if any(w in line for w in ("registers", "spill", "Compiling", "wgmma", "C75")):
-                    log("  ptxas " + line.strip())
-                # C7515 serializes a wgmma chain; C7519 injects a
-                # warpgroup.arrive where a register in use by one is touched
-                if "(C7515)" in line or "(C7519)" in line or (
-                        "wgmma" in line and "serializ" in line):
-                    serialized.append(line.strip())
-    if serialized:
-        raise RuntimeError(f"ptxas serialized wgmma: {serialized}")
+            faults = ptxas_check(f.read().splitlines())
+    if faults:
+        raise RuntimeError(f"ptxas serialized wgmma or ignored setmaxnreg: {faults}")
     wgmma_sass()
+
+
+def ptxas_check(lines) -> list:
+    """Log ptxas's registers and spills, each Hopper instance by its label,
+    and return the lines that fail the build (``PTXAS_FAULTS``, or a wgmma
+    chain serialized)."""
+    def label_of(name):
+        args = WGMMA_NAME_ARGS.search(name)
+        return WGMMA_INSTANCES.get(args.groups(), name) if WGMMA_KERNEL in name and args else name
+
+    faults, label = [], None
+    for line in lines:
+        entry = PTXAS_ENTRY.search(line)
+        if entry:
+            label = label_of(entry.group(1))
+        # a note names its function itself, ahead of that function's entry
+        named = PTXAS_FUNCTION.search(line)
+        where = label_of(named.group(1)) if named else label
+        if any(w in line for w in ("registers", "spill", "wgmma", "setmaxnreg", "C75")):
+            log(f"  ptxas [{where}] " + line.strip())
+        if any(code in line for code in PTXAS_FAULTS) or ("wgmma" in line and "serializ" in line):
+            faults.append(f"[{where}] {line.strip()}")
+    return faults
 
 
 def peaks():
@@ -855,8 +885,9 @@ def wgmma_sass() -> None:
     MMA) in each instance of the Hopper kernel in the built library's SASS;
     fail unless the eight of WGMMA_INSTANCES are all there, each with HGMMA
     and UTMALDG, K6a and K6b with no MUFU.EX2 (no softmax), and no function
-    of the library has HMMA. The softmax's instruction mix (SOFTMAX_OPS) is
-    logged."""
+    of the library has HMMA; the warp-specialised instances
+    (WARP_SPECIALISED) must hold setmaxnreg. The softmax's instruction mix
+    (SOFTMAX_OPS) is logged."""
     from tpu_operator_torch import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -873,18 +904,25 @@ def wgmma_sass() -> None:
             continue
         args = WGMMA_NAME_ARGS.search(name)
         label = WGMMA_INSTANCES.get(args.groups() if args else None, name.strip())
-        found[label] = (body.count("HGMMA"), body.count("UTMALDG"), body.count("MUFU.EX2"))
+        found[label] = (body.count("HGMMA"), body.count("UTMALDG"), body.count("MUFU.EX2"),
+                        body.count(SETMAXREG_SASS))
         log(f"{WGMMA_KERNEL} {label} SASS: HGMMA {found[label][0]}, "
-            f"UTMALDG {found[label][1]}, HMMA {body.count(' HMMA')}; "
+            f"UTMALDG {found[label][1]}, HMMA {body.count(' HMMA')}, "
+            f"{SETMAXREG_SASS} {found[label][3]}; "
             + ", ".join(f"{op} {body.count(op)}" for op in SOFTMAX_OPS))
+        for line in body.splitlines():
+            if SETMAXREG_SASS in line:
+                log(f"  {label}: {line.strip()}")
     if sorted(found) != sorted(WGMMA_INSTANCES.values()):
         raise RuntimeError(f"{WGMMA_KERNEL} instances in the SASS: {sorted(found)}, "
                            f"expected {sorted(WGMMA_INSTANCES.values())}")
     if hmma:
         raise RuntimeError(f"HMMA in the library's SASS: {hmma}")
-    for label, (hgmma, utmaldg, ex2) in found.items():
-        if hgmma == 0 or utmaldg == 0 or (label in NO_SOFTMAX and ex2):
-            raise RuntimeError(f"{label} has HGMMA {hgmma}, UTMALDG {utmaldg}, MUFU.EX2 {ex2}")
+    for label, (hgmma, utmaldg, ex2, setmaxreg) in found.items():
+        if (hgmma == 0 or utmaldg == 0 or (label in NO_SOFTMAX and ex2)
+                or (label in WARP_SPECIALISED and not setmaxreg)):
+            raise RuntimeError(f"{label} has HGMMA {hgmma}, UTMALDG {utmaldg}, MUFU.EX2 {ex2}, "
+                               f"{SETMAXREG_SASS} {setmaxreg}")
 
 
 def check_variant(fa, variant, q, k, v, bq, bk, causal) -> float:

@@ -289,3 +289,101 @@ def test_tiled_copy_tma_plan_fits_the_card():
     assert c["LANES"] == membw.LANES and membw.LANES % cols == 0
     assert cols <= 256 and rows <= 256 and (cols * 4) % 16 == 0
     assert 0 <= lag < stages and stages * cols * rows * 4 + 128 <= 227 * 1024
+
+
+# flash_fwd_bf16's instance of the Hopper kernel, its STAGES as written
+LAUNCH_INSTANCE = re.compile(r"\s*return\s+launch_wgmma<Step::(\w+),\s*Body::(\w+),\s*(\w+)>\(")
+K3_READER = Path(__file__).resolve().parents[1] / "benchmark" / "metrics" / "kernel.k3_roofline.py"
+
+
+def entry_instance(entry: str) -> tuple:
+    """(Step, Body, STAGES) of the Hopper kernel instance a C entry launches,
+    STAGES resolved through flash.cu's constants."""
+    m = LAUNCH_INSTANCE.match(entry_body("flash.cu", entry))
+    assert m, f"{entry} does not launch through launch_wgmma"
+    step, body, stages = m.groups()
+    return step, body, int(constants("flash.cu").get(stages, stages))
+
+
+def kernel_names(step: str, body: str, stages: int) -> dict:
+    """An instance's name as a device trace spells it: demangled, Itanium
+    mangled, and mangled with the anonymous namespace nvcc names per file."""
+    s = enum_values("flash.cu", "Step")[step]
+    b = enum_values("flash.cu", "Body")[body]
+    ns = "(anonymous namespace)::"
+    args = "ILNS_4StepE%sELNS_4BodyE%sELi%dEEEv14CUtensorMap_st" % (s, b, stages)
+    return {
+        "demangled": f"void {ns}flash_fwd_wgmma_kernel<({ns}Step){s}, ({ns}Body){b}, {stages}>"
+                     "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, int, int, "
+                     "int, int, float)",
+        "mangled": "_ZN12_GLOBAL__N_122flash_fwd_wgmma_kernel" + args
+                   + "S1_S1_P13__nv_bfloat16iiiif",
+        "mangled_nvcc": "_ZN40_GLOBAL__N__25922395_8_flash_cu_48fe48b522flash_fwd_wgmma_kernel"
+                        + args + "S3_S3_P13__nv_bfloat16iiiif",
+    }
+
+
+@pytest.fixture(scope="module")
+def k3_pattern():
+    """The benchmark's K3 pattern, read from its reader and not edited."""
+    spec = importlib.util.spec_from_file_location("k3_roofline_reader", K3_READER)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.KERNEL
+
+
+def test_k3_launches_the_full_step_on_the_one_sub_tile_body():
+    step, body, _ = entry_instance("flash_fwd_bf16")
+    assert (step, body) == ("kFull", "kOne")
+    m = LAUNCH_INSTANCE.match(entry_body("flash.cu", "flash_fwd_bf16"))
+    assert m.group(3) == "K3_STAGES"
+
+
+def test_k3_ring_has_two_stages():
+    assert constants("flash.cu")["K3_STAGES"] == 2
+
+
+@pytest.mark.parametrize("spelling", ["demangled", "mangled", "mangled_nvcc"])
+def test_k3_roofline_reader_finds_k3(spelling, k3_pattern):
+    """``kernel.k3_roofline`` finds K3 by its template arguments: a K3 renamed,
+    or given another ring depth, would read nothing on the card."""
+    assert k3_pattern.search(kernel_names(*entry_instance("flash_fwd_bf16"))[spelling])
+
+
+@pytest.mark.parametrize("entry", sorted(set(HOPPER_ENTRIES) - {"flash_fwd_bf16"}))
+def test_k3_roofline_reader_takes_no_other_instance(entry, k3_pattern):
+    names = kernel_names(*entry_instance(entry))
+    assert not any(k3_pattern.search(name) for name in names.values()), entry
+
+
+def test_chip_smoke_wants_setmaxnreg_in_every_warp_specialised_instance():
+    """``chip_smoke.WARP_SPECIALISED``, the instances whose SASS must move
+    registers between warpgroups, are the labels of the kOne instances,
+    K3 among them."""
+    bodies = enum_values("flash.cu", "Body")
+    smoke = _chip_smoke()
+    one = {label for (_, body), label in smoke.WGMMA_INSTANCES.items() if body == bodies["kOne"]}
+    assert set(smoke.WARP_SPECIALISED) == one
+    assert "K3" in one and smoke.SETMAXREG_SASS in "USETMAXREG.DEALLOC.CTAPOOL 0x18"
+
+
+@pytest.mark.parametrize("note, fails", [
+    ("(C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized", True),
+    ("(C7519) warpgroup.arrive is injected in around line 779 by compiler", True),
+    ("(C7508) setmaxnreg ignored; unable to determine register count at entry", True),
+    ("(C7513) Potential Performance Loss: wgmma.mma_async instructions are serialized", True),
+    ("Used 168 registers, used 16 barriers, 64 bytes smem", False),
+])
+def test_chip_smoke_ptxas_check_fails_a_serialized_or_ignored_note(note, fails):
+    """``chip_smoke.ptxas_check`` fails on a serialized wgmma chain, an
+    injected warpgroup.arrive or an ignored setmaxnreg, and names the
+    instance the note is about."""
+    smoke = _chip_smoke()
+    k3 = kernel_names("kFull", "kOne", constants("flash.cu")["K3_STAGES"])["mangled_nvcc"]
+    k4 = kernel_names("kFull", "kPipe", constants("flash.cu")["K4_STAGES"])["mangled_nvcc"]
+    lines = [f"ptxas info    : Compiling entry function '{k4}' for 'sm_90a'",
+             f"ptxas info    : {note} in the function '{k3}'"]
+    faults = smoke.ptxas_check(lines)
+    assert bool(faults) == fails
+    if fails:
+        assert faults[0].startswith("[K3]")

@@ -20,30 +20,31 @@ denominator. A failed probe or matmul gives ``vs_matmul``
 probe's ``tflops_effective`` (the causal triangle's FLOPs a second, the
 same for every tiling), not its ``tflops`` (FLOPs performed, masked
 blocks included). The Hopper kernel stages 64-key sub-tiles whatever the
-blocks, so every pair it takes (64/64 to 64/8192) runs at 0.91-1.05x the
-shipped rate per performed FLOP, and the matmul chain reads 677-832
-TFLOPS from run to run: on the reference's numerator the two populations
-overlap at every pair, with one matmul or the best of three (PERF.md
-§6). What a tiling or a lost causal skip costs is masked work, which only
-the effective rate sees. ``vs_matmul_performed``, the reference's ratio,
+blocks, so every pair it took (64/64 to 64/8192) ran at 0.91-1.05x the
+shipped rate per performed FLOP when this was set (the warp-specialised
+K3 runs 64/8192, one consumer warpgroup a block, at 0.62x), and the matmul
+chain reads 677-832 TFLOPS from run to run: on the reference's numerator
+the two populations overlapped at every pair, with one matmul or the best
+of three (PERF.md §6). What a tiling or a lost causal skip costs is masked
+work, which only the effective rate sees. ``vs_matmul_performed``, the reference's ratio,
 is kept beside it for the record. The rule for a card whose populations
 overlap was to change only the denominator; the best of three matmul
 chains did not part them either (PERF.md §6), so the numerator changed
 instead, and the denominator is the reference's.
 
 What the gate catches: a reading trips when the kernel's rate per
-effective FLOP falls under ``floor / HEALTHY_LOWEST`` = 0.809 of its
-healthy rate. So a K3 that does the same work 19.1% slower (23.6% more
-time) trips it in the lowest healthy window recorded, and one 26.0%
-slower (the floor over the highest healthy reading, 0.4716) in every
+effective FLOP falls under ``floor / HEALTHY_LOWEST`` = 0.682 of its
+healthy rate. So a K3 that does the same work 31.8% slower (46.6% more
+time) trips it in the lowest healthy window recorded, and one 37.5%
+slower (the floor over the highest healthy reading, 0.7290) in every
 one; a smaller loss passes. A tiling or a lost causal skip that adds
 masked work at the same rate counts in full: 64/8192 computes the whole
-square of scores and reads 0.56x the healthy ratio.
+square of scores and reads 0.29-0.35x the healthy ratio.
 
 The floor sits at the midpoint between two populations measured on the
 card named by ``POPULATION_CARD`` at ``POPULATION_POWER_LIMIT``, each
-reading from a separate process on a fresh machine (PERF.md §6): the
-healthy runs at the shipped blocks (``flashattn.card_blocks(8192)``,
+reading from a separate process (PERF.md §6), on the warp-specialised
+K3: the healthy runs at the shipped blocks (``flashattn.card_blocks(8192)``,
 128/128), whose lowest ``vs_matmul`` is ``HEALTHY_LOWEST``, and the
 degraded runs at ``DEGRADED_BLOCKS``, a whole-seq ``block_k`` that
 computes the full square of scores, whose highest is
@@ -78,8 +79,8 @@ POPULATION_CARD = "NVIDIA H100 80GB HBM3"
 POPULATION_POWER_LIMIT = "700.00 W"
 SHIPPED_BLOCKS = card_blocks(SEQ)
 DEGRADED_BLOCKS = (64, SEQ)
-HEALTHY_LOWEST = 0.4317154735989049  # of 0.4317-0.4716, five runs
-DEGRADED_HIGHEST = 0.26661541021448737  # of 0.2418-0.2666, five runs
+HEALTHY_LOWEST = 0.6682706208511973  # of 0.6683-0.7290, five runs
+DEGRADED_HIGHEST = 0.24348384976467424  # of 0.2146-0.2435, five runs
 FLASHATTN_VS_MATMUL_FLOOR = (HEALTHY_LOWEST + DEGRADED_HIGHEST) / 2
 
 
