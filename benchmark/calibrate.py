@@ -54,8 +54,11 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory(prefix="bench-status-") as status:
         run = harness.setup(harness.Bench(ROOT), args.workload, "cuda", status, False)
-        sound = readings(run, seeds(args.seeds), control=False)
-        ctrl = readings(run, seeds(args.control_seeds), control=True)
+        try:
+            sound = readings(run, seeds(args.seeds), control=False)
+            ctrl = readings(run, seeds(args.control_seeds), control=True)
+        finally:
+            harness.stop_world(run)
     summary = {}
     for key in sound[0]:
         summary[key] = {"lower": max(r[key] for r in sound),

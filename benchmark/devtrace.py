@@ -7,6 +7,8 @@ annotations, all on one clock. ``Trace`` keeps them as
 ``(name, start_ns, end_ns)`` and works out the traced window (the first
 pass's start to the last pass's end), the seconds in which some operation
 ran on the card, the idle gaps, and the breakdown of the result line.
+``Reduced`` is what a helper rank of a world (``world.py``) sends back of
+its own trace: those sums, without the events.
 """
 
 from __future__ import annotations
@@ -165,13 +167,10 @@ class Trace:
         times = [e - s for name, s, e in self.device_ops if pattern.search(name)]
         return sum(times) / len(times) / 1e9 if times else None
 
-    def breakdown(self) -> dict:
-        """The card's operations that took the most time, and the window's idle
-        time by what the host was doing: the benchmark span open (a component)
-        and the outermost host operation, or ``python`` between operations."""
-        by_op = defaultdict(int)
-        for name, s, e in self.device_ops:
-            by_op[short_name(name)] += e - s
+    def idle_by_host(self) -> dict:
+        """The window's idle nanoseconds by what the host was doing: the
+        benchmark span open (a component) and the outermost host operation,
+        or ``python`` between operations."""
         spans = outermost([x for x in self.spans if x[0] != self.window_span])
         span_starts = [s for _, s, _ in spans]
         ops = outermost(self.host_ops)
@@ -183,6 +182,54 @@ class Trace:
             op = covering(ops, op_starts, t)
             label = f"{span[0] if span else 'between components'}: {op[0] if op else 'python'}"
             idle[label] += e - s
-        top = lambda d: [[k, v / 1e9] for k, v in sorted(d.items(), key=lambda kv: -kv[1])][
-            :BREAKDOWN_ROWS]
-        return {"device_ops": top(by_op), "idle_gaps": top(idle)}
+        return idle
+
+    def breakdown(self) -> dict:
+        """The card's operations that took the most time, and the window's idle
+        time by what the host was doing (``idle_by_host``)."""
+        by_op = defaultdict(int)
+        for name, s, e in self.device_ops:
+            by_op[short_name(name)] += e - s
+        return {"device_ops": _top(by_op, 1e9), "idle_gaps": _top(self.idle_by_host(), 1e9)}
+
+    def reduce(self) -> "Reduced":
+        """This trace's sums, without its events."""
+        ops = defaultdict(lambda: [0, 0])
+        for name, s, e in self.device_ops:
+            ops[name][0] += 1
+            ops[name][1] += e - s
+        return Reduced(window_s=self.window_s, busy_s=self.busy_s,
+                       ops={name: (n, ns / 1e9) for name, (n, ns) in ops.items()},
+                       idle={label: ns / 1e9 for label, ns in self.idle_by_host().items()})
+
+
+def _top(totals: dict, per_second: float) -> list:
+    """The ``BREAKDOWN_ROWS`` largest of ``totals``, as ``[name, seconds]``."""
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1])[:BREAKDOWN_ROWS]
+    return [[k, v / per_second] for k, v in ranked]
+
+
+@dataclass
+class Reduced:
+    """One card's trace reduced to its sums: the traced window and the
+    seconds busy in it (as ``Trace`` has them), each device operation's
+    launches and seconds by its full name, and the idle seconds by what the
+    host was doing. A helper rank sends this over its pipe."""
+
+    window_s: float
+    busy_s: float
+    ops: dict  # full name -> (launches, seconds)
+    idle: dict  # what the host was doing -> idle seconds
+
+    def mean_seconds(self, pattern) -> "float | None":
+        """Mean seconds of the operations whose name ``pattern`` finds."""
+        hits = [v for name, v in self.ops.items() if pattern.search(name)]
+        launches = sum(n for n, _ in hits)
+        return sum(s for _, s in hits) / launches if launches else None
+
+    def breakdown(self) -> dict:
+        """As ``Trace.breakdown``."""
+        by_op = defaultdict(float)
+        for name, (_, seconds) in self.ops.items():
+            by_op[short_name(name)] += seconds
+        return {"device_ops": _top(by_op, 1), "idle_gaps": _top(self.idle, 1)}

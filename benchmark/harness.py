@@ -17,6 +17,12 @@ the first that fails the node ends the pass. One client issues one pass
 after another until ``seconds`` have passed (a pass that has started runs
 to its end). With ``trace`` the window runs under ``torch.profiler`` and
 the result carries the per-layer metrics instead of the end-to-end ones.
+
+A cell whose ``chips`` is more than one runs on a world of that many ranks,
+one process a card, which set-up starts and the run's end stops
+(``world.py``): every component runs on every rank, and the line counts,
+times, traces and measures every card. A cell on one card imports none of
+it and starts no process.
 """
 
 from __future__ import annotations
@@ -49,6 +55,14 @@ PASS_SPAN = "pass"
 
 class SilentMetric(RuntimeError):
     """A metric the cell reports read nothing on the card."""
+
+
+class WorldError(RuntimeError):
+    """A rank of a run's world raised, died or did not answer in time."""
+
+
+class ForbiddenModules(RuntimeError):
+    """A helper rank of a run's world loaded a module a run may not load."""
 
 
 def load_module(path: Path, name: str):
@@ -128,6 +142,11 @@ class Run:
     setup_parts: dict = field(default_factory=dict)  # seconds of each part of set-up
     window_s: float = 0.0
     trace: object = None
+    # a cell on more than one card: this process's ``mesh.Rank``, the world
+    # (rank 0 only) and each rank's ``devtrace.Reduced`` trace, by rank
+    rank: object = None
+    world: object = None
+    rank_traces: list = field(default_factory=list)
 
     @property
     def expect_gpu(self) -> bool:
@@ -161,23 +180,44 @@ def _sync(run: Run) -> None:
         torch.cuda.synchronize(run.device)
 
 
-def one_pass(run: Run, record: bool) -> None:
-    """The mix's components in order; the first that fails the node ends the
-    pass. With ``record`` the payloads' numbers and failures count."""
+def call_component(run: Run, module, w) -> tuple:
+    """One call of a component: ``(payload, why)``, where ``why`` says why
+    it fails the node (``None`` where it does not)."""
     from tpu_operator_torch.validator.components import ValidationError
 
+    try:
+        payload = module.call(run, w)
+        verdict = getattr(module, "verdict", None)
+        return payload, verdict(payload, run, w) if verdict else None
+    except ValidationError as e:
+        return None, f"{type(e).__name__}: {e}"
+
+
+def payload_numbers(run: Run, module, w, payload) -> dict:
+    """The payload's numbers that ``correct`` holds, those with a value."""
+    if payload is None:
+        return {}
+    return {k: v for k, v in module.numbers(payload, run, w).items() if v is not None}
+
+
+def keep_largest(numbers: dict, found: dict) -> None:
+    """Each of ``found`` into ``numbers`` where it is the larger."""
+    for key, value in found.items():
+        numbers[key] = max(value, numbers.get(key, value))
+
+
+def one_pass(run: Run, record: bool) -> None:
+    """The mix's components in order; the first that fails the node ends the
+    pass. With ``record`` the payloads' numbers and failures count. On a
+    world, every rank runs each component (``World.one_pass``)."""
+    if run.world is not None:
+        run.world.one_pass(run, record)
+        return
     for name, module, w in run.components:
         with run.span(name):
-            try:
-                payload = module.call(run, w)
-                verdict = getattr(module, "verdict", None)
-                why = verdict(payload, run, w) if verdict else None
-            except ValidationError as e:
-                payload, why = None, f"{type(e).__name__}: {e}"
-        if record and payload is not None:
-            for key, value in module.numbers(payload, run, w).items():
-                if value is not None:
-                    run.numbers[key] = max(value, run.numbers.get(key, value))
+            payload, why = call_component(run, module, w)
+        if record:
+            keep_largest(run.numbers, payload_numbers(run, module, w, payload))
         if why is not None:
             if record:
                 run.failed += 1
@@ -185,34 +225,67 @@ def one_pass(run: Run, record: bool) -> None:
             return
 
 
-def setup(bench: Bench, cell_name: str, device: str, status_dir: str, annotate: bool) -> Run:
-    """The cell's configuration, mix and components; the program's kernel
-    library; the status files under ``status_dir``."""
-    from tpu_operator_torch import _build
+def new_run(bench: Bench, cell_name: str, device, status_dir: str, annotate: bool) -> Run:
+    """A ``Run`` of the cell on ``device``, its status files under ``status_dir``."""
     from tpu_operator_torch.validator.components import StatusFiles
 
     cell = bench.cell(cell_name)
-    cfg = bench.config(cell["config"])
-    mix = bench.mix(cell["traffic"])
-    dev = torch.device(device)
-    run = Run(cell=cell, cfg=cfg, mix=mix, device=dev, annotate=annotate,
-              status=StatusFiles(status_dir))
-    t = time.perf_counter()
-    if dev.type == "cuda":
+    return Run(cell=cell, cfg=bench.config(cell["config"]), mix=bench.mix(cell["traffic"]),
+               device=torch.device(device), annotate=annotate, status=StatusFiles(status_dir))
+
+
+def open_device(run: Run, t: float) -> float:
+    """The CUDA context and the program's kernel library, on the card;
+    returns the time it is done."""
+    from tpu_operator_torch import _build
+
+    if run.device.type == "cuda":
         torch.cuda.init()
-        torch.empty(1, device=dev)  # the CUDA context
-        run.peak = counts.card_peak(torch.cuda.get_device_name(dev))
+        torch.empty(1, device=run.device)  # the CUDA context
+        run.peak = counts.card_peak(torch.cuda.get_device_name(run.device))
         t = _part(run, "cuda_context", t)
         _build.library()
         t = _part(run, "kernel_library", t)
         run.setup_parts["kernel_library_built"] = bool(_build.build_info.get("built"))
-    for name in mix["components"]:
+    return t
+
+
+def prepare_components(bench: Bench, run: Run) -> None:
+    """Each of the mix's components loaded and prepared, in order."""
+    for name in run.mix["components"]:
         module = bench.component(name)
-        w = cfg["components"][name]
+        w = run.cfg["components"][name]
         run.shapes.update(module.prepare(run, w))
         run.components.append((name, module, w))
+
+
+def setup(bench: Bench, cell_name: str, device: str, status_dir: str, annotate: bool) -> Run:
+    """The cell's configuration, mix and components; the program's kernel
+    library; the status files under ``status_dir``. A cell on more than one
+    card also starts its world here, before the components are prepared on
+    every rank; whoever holds the run stops it (``stop_world``)."""
+    run = new_run(bench, cell_name, device, status_dir, annotate)
+    t = open_device(run, time.perf_counter())
+    if run.cell["chips"] > 1:
+        from benchmark import world
+
+        run.world = world.World.start(bench, run, status_dir)
+        t = _part(run, "world", t)
+        try:
+            run.world.command(("prepare",), lambda: prepare_components(bench, run))
+        except BaseException:
+            run.world.stop()
+            raise
+    else:
+        prepare_components(bench, run)
     _part(run, "components", t)
     return run
+
+
+def stop_world(run: Run) -> dict:
+    """Stop the run's world, if it has one; the forbidden modules each
+    helper rank had loaded, by rank."""
+    return run.world.stop() if run.world is not None else {}
 
 
 def _part(run: Run, name: str, since: float) -> float:
@@ -229,6 +302,8 @@ def window(run: Run, seconds: float, trace: bool) -> None:
 
     profiler = devtrace.DeviceTrace(run.device) if trace else None
     if profiler:
+        if run.world is not None:
+            run.world.command(("trace_start",))
         profiler.start()
     launches = dict(_build.launches)
     first = time.perf_counter()
@@ -249,6 +324,9 @@ def window(run: Run, seconds: float, trace: bool) -> None:
     }
     if profiler:
         run.trace = profiler.stop(PASS_SPAN, [PASS_SPAN] + [c[0] for c in run.components])
+        if run.world is not None:
+            helpers = run.world.command(("trace_stop",))[1:]
+            run.rank_traces = [run.trace.reduce(), *helpers]
 
 
 def hold(run: Run, module, w, control: bool = False) -> dict:
@@ -266,21 +344,32 @@ def hold(run: Run, module, w, control: bool = False) -> dict:
     return module.held(run, w, builds, control)
 
 
+def check_component(run: Run, name: str, module, w, seed: int, control: bool) -> dict:
+    """One component's comparison on inputs from ``seed`` and its entry's
+    own call held (``hold``), on this process's card."""
+    gen = run.generator(seed, name)
+    numbers = module.compare(run, w, gen, control)
+    _sync(run)
+    numbers.update(hold(run, module, w, control))
+    _sync(run)
+    if run.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return numbers
+
+
 def check(run: Run, seed: int, control: bool = False) -> dict:
     """Every number ``correct`` holds to a limit: each component's comparison
     on inputs from ``seed``, the entry's own call held (``hold``), and the
-    payloads' numbers from the window. Returns ``{name: (value, limit)}``."""
+    payloads' numbers from the window; on a world each the largest over the
+    ranks (``World.check_component``). Returns ``{name: (value, limit)}``."""
     found = {}
-    for name, module, w in run.components:
-        gen = run.generator(seed, name)
-        numbers = module.compare(run, w, gen, control)
-        _sync(run)
-        numbers.update(hold(run, module, w, control))
+    for i, (name, module, w) in enumerate(run.components):
+        if run.world is not None:
+            numbers = run.world.check_component(run, i, seed, control)
+        else:
+            numbers = check_component(run, name, module, w, seed, control)
         for key, value in numbers.items():
             found[key] = (value, w["limits"][key])
-        _sync(run)
-        if run.device.type == "cuda":
-            torch.cuda.empty_cache()
     for name, _, w in run.components:
         for key, limit in w["limits"].items():
             if key not in found:
@@ -311,8 +400,13 @@ def require_read(cell: str, listed: list, metrics: dict, device: torch.device) -
 
 def run_cell(bench: Bench, cell_name: str, seed: int, seconds: float, trace: bool,
              device: str, t0: float) -> dict:
-    """One whole run; returns the result line as a dict (``checks`` last)."""
+    """One whole run; returns the result line as a dict (``checks`` last).
+    A run on a world stops it before it returns or raises; it raises
+    ``WorldError`` where a rank failed, and ``ForbiddenModules`` where a
+    helper rank loaded a module a run may not load."""
     status_dir = tempfile.mkdtemp(prefix="bench-status-")
+    run = None
+    loaded = {}
     try:
         imported = time.perf_counter() - t0
         run = setup(bench, cell_name, device, status_dir, annotate=trace)
@@ -325,6 +419,9 @@ def run_cell(bench: Bench, cell_name: str, seed: int, seconds: float, trace: boo
         run.setup_s = time.perf_counter() - t0
         window(run, seconds, trace)
         peak = memory_peak_bytes(run.device)
+        if run.world is not None:
+            peaks = run.world.command(("peak",), lambda: peak)
+            peak = max(peaks)
         listed = bench.metrics_of(cell_name, trace)
         metrics = {}
         for m in listed:
@@ -333,18 +430,28 @@ def run_cell(bench: Bench, cell_name: str, seed: int, seconds: float, trace: boo
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         require_read(cell_name, listed, metrics, run.device)
         checks = check(run, seed)
+        loaded = stop_world(run)
     finally:
+        if run is not None:
+            stop_world(run)
         shutil.rmtree(status_dir, ignore_errors=True)
+    if loaded:
+        raise ForbiddenModules("; ".join(f"rank {r}: {', '.join(mods)}"
+                                         for r, mods in sorted(loaded.items())))
     dev = {
         "platform": "gpu" if run.device.type == "cuda" else run.device.type,
         "kind": torch.cuda.get_device_name(run.device) if run.device.type == "cuda" else "cpu",
-        "count": 1,
+        "count": run.cell["chips"],
         "memory_peak_bytes": peak,
     }
+    if run.world is not None:
+        dev["memory_peak_bytes_by_rank"] = peaks
     result = {"correct": is_correct(checks), "attempted": run.attempted, "failed": run.failed,
               "metrics": metrics, "device": dev}
     if trace and run.trace is not None:
         dev["busy_s"] = run.trace.busy_s
+        if run.rank_traces:  # averaged over the cards
+            dev["busy_s"] = sum(t.busy_s for t in run.rank_traces) / len(run.rank_traces)
         dev["window_s"] = run.trace.window_s
         result["breakdown"] = run.trace.breakdown()
     if run.failures:

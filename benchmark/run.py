@@ -5,8 +5,9 @@
 Prints the checks beside their limits on standard error and one JSON
 line on standard output (``harness.run_cell``). Exits non-zero and prints
 no result without enough CUDA cards, when a metric the cell reports reads
-nothing, or when a module of JAX or of the JAX package is loaded once the
-window has closed.
+nothing, when a rank of a cell's world fails, or when a module of JAX or of
+the JAX package is loaded once the window has closed, in this process or in
+a helper rank.
 """
 
 import time
@@ -51,6 +52,12 @@ def main(argv=None) -> int:
     except harness.SilentMetric as e:
         print(f"run: {e}", file=sys.stderr)
         return 4
+    except harness.WorldError as e:
+        print(f"run: {e}", file=sys.stderr)
+        return 5
+    except harness.ForbiddenModules as e:
+        print(f"run: loaded modules a run may not load: {e}", file=sys.stderr)
+        return 3
     found = harness.forbidden_modules()
     if found:
         print(f"run: loaded modules a run may not load: {', '.join(found)}", file=sys.stderr)
